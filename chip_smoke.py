@@ -10,14 +10,26 @@ Phases (any failure raises, and the script exits non-zero):
      256x256: K1 (emission) keys / ids bit for bit after the stable sort,
      K2 (compositing) image and final_T within 2e-5 on >= 99.99% of values
      and every larger difference <= 4e-3 (one 1/255 knife-edge or T-stop
-     flip);
+     flip); K3 (compositing backward) and K4 (per-gaussian sum) against
+     the plain autograd and the plain sum (tolerances at compare_backward),
+     each bit-identical across two runs;
   4. the main path at full width: a seeded 300k-gaussian SH-3 model written
      as a GS PLY, a 4-view COLMAP text model at 960x576, and the port's
      Renderer on cuda rendering the 4 stereo pairs to PNG; K1 and K2 must
      each launch once per render, with no pair overflow;
-  5. K1 and K2 timed beside their plain versions at the main path's shapes,
-     printed as one JSON "kernels" line;
-  6. last line: {"ok": true, "device": {...}}.
+  5. K1 and K2 timed beside their plain versions at the main path's shapes;
+  6. the training path at full width: 8 target views of the 300k SH-3
+     sphere rendered by the port at 960x576 and written as PNGs with a
+     binary COLMAP model holding the 300k centres; load_colmap_scene ->
+     GaussianModel.from_point_cloud -> Trainer(device="cuda"), 20
+     iterations from 3090 (active SH degree 3, a densify at 3100), an
+     opacity reset and 5 more; K1-K4 must launch once per taken step, with
+     no overflow, a finite and falling loss, > 90% of the alive rows kept
+     by the densify, and finite params and Adam moments;
+  7. one training step's stages (CUDA events), K3 and K4 at its shapes
+     beside their plain versions, and the device idle share of 3 steps;
+     all four kernels printed as one JSON "kernels" line;
+  8. last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
@@ -38,6 +50,12 @@ FP32_OPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
 # conic power, 4 for expf (range reduction + polynomial), 1 for the opacity
 # product and 6 for the compositing update of an accepted pair.
 K2_OPS_PER_EVAL = 20
+# FP32 operations per (pair, pixel) evaluation in K3: K2's 14 for the
+# alpha replay, 2 for the T update, and for the gradient 5 for u, 2 for the
+# running sum, 5 for dalpha, 1 for dpower, 18 for the nine gradient terms
+# and 3 for the warp-tree and cross-warp sums (45 shuffle-adds per
+# (pair, warp) over 32 pixels, 9 adds per (pair, warp) over the block).
+K3_OPS_PER_EVAL = 50
 
 
 def check(cond, msg):
@@ -49,9 +67,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, iters):
-    """Mean device time of fn() over iters launches, after one warm-up."""
-    fn()
+def cuda_time_ms(fn, iters, warm=True):
+    """Mean device time of fn() over iters launches, after one warm-up
+    (skipped with warm=False, for plain versions already run once)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -130,7 +150,8 @@ def phase_kernels_vs_plain():
                                                    emission_cuda,
                                                    emission_plain)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
-    from gs2mesh_torch.ops.rasterizer.tile_render import composite_plain
+    from gs2mesh_torch.ops.rasterizer.tile_render import (composite_plain,
+                                                          pair_rows)
 
     W = H = 256
     cfg = RasterizerConfig(pair_capacity=1 << 18)
@@ -152,13 +173,97 @@ def phase_kernels_vs_plain():
         pin = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H,
                cfg)
         color_k, T_k = composite_cuda(*pin)
-        plain = composite_plain(*pin, max_per_tile=int(pairs.tile_counts.max()))
+        plain = composite_plain(pair_rows(feat9, pairs.ids),
+                                pairs.tile_starts, pairs.tile_counts, W, H,
+                                cfg, int(pairs.tile_counts.max()))
         torch.cuda.synchronize()
         compare_composite(color_k, T_k, plain.color, plain.final_T,
                           "20k/256x256")
+    return pairs, feat9, prep, color_k, T_k, W, H, cfg
 
 
-def write_colmap_model(sparse, n_views, width, height, fx):
+def loss_cotangents(color, final_T):
+    """Cotangents of loss = mean(image^2) + 0.1 * mean(final_T) with a black
+    background (image == color), so both K3 inputs dC and dTf are nonzero."""
+    return (2.0 * color / color.numel(),
+            torch.full_like(final_T, 0.1 / final_T.numel()))
+
+
+def run_backward_kernels(pairs, feat9, tiles_touched, color, final_T, dC, dT,
+                         W, H, cfg):
+    from gs2mesh_torch.ops.rasterizer.composite import composite_backward_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import segment_sum_cuda
+
+    dpairs = composite_backward_cuda(pairs.ids, pairs.order, pairs.tile_starts,
+                                     pairs.tile_counts, feat9, color, final_T,
+                                     dC, dT, W, H, cfg)
+    return dpairs, segment_sum_cuda(dpairs, pairs.offsets, tiles_touched)
+
+
+def run_backward_plain(pairs, feat9, tiles_touched, dC, dT, W, H, cfg):
+    from gs2mesh_torch.ops.rasterizer.emit import segment_sum_plain
+    from gs2mesh_torch.ops.rasterizer.tile_render import (
+        composite_backward_plain, pair_rows)
+
+    dpairs = torch.zeros((pairs.ids.shape[0], 9), dtype=torch.float32,
+                         device=feat9.device)
+    dpairs[pairs.order] = composite_backward_plain(
+        pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
+        dC, dT, W, H, cfg, int(pairs.tile_counts.max()))
+    return dpairs, segment_sum_plain(dpairs, pairs.offsets, tiles_touched)
+
+
+def compare_backward(k3, k4, plain3, plain4, what):
+    """K3 against the plain autograd: a value is within tolerance if it is
+    within 2e-3 relative plus 1e-4 of its column's largest magnitude (K3
+    sums each pair's 1024 pixels in another order than the plain bmm and
+    sums); >= 99.9% of values must be, the rest are T-stop knife edges
+    where the plain log-space T and the kernel's product decide apart. K4
+    against the plain float64 sum of the same K3 rows: within 1e-5
+    relative plus 1e-6 of the largest magnitude, every value."""
+    scale = plain3.abs().amax(0)
+    gap = (k3 - plain3).abs()
+    ok = gap <= 2e-3 * plain3.abs() + 1e-4 * scale
+    share = float(ok.float().mean())
+    rel_gap = float((gap / scale.clamp_min(1e-30)).max())
+    k3_err = float(gap.max())
+    log(f"{what}: K3 vs plain: {gap.numel()} values, {100 * share:.5f}% "
+        f"within tolerance, max abs err {k3_err:.3e} (largest gap / column "
+        f"max {rel_gap:.3e}); live pair rows "
+        f"{int(plain3.abs().amax(1).gt(0).sum())}")
+    check(share >= 0.999, f"{what}: K3 agrees on {share:.6f} < 0.999")
+    gap4 = (k4 - plain4).abs()
+    k4_err = float(gap4.max())
+    lim = 1e-5 * plain4.abs() + 1e-6 * float(plain4.abs().max())
+    log(f"{what}: K4 vs plain: {gap4.numel()} values, max abs err "
+        f"{k4_err:.3e}, all within tolerance: {bool((gap4 <= lim).all())}")
+    check(bool((gap4 <= lim).all()), f"{what}: K4 disagrees")
+    return k3_err, k4_err
+
+
+def phase_backward_vs_plain(pairs, feat9, prep, color, final_T, W, H, cfg):
+    """K3 and K4 against their plain versions on phase 3's scene, and each
+    bit-identical across two runs."""
+    dC, dT = loss_cotangents(color, final_T)
+    args = (pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
+            cfg)
+    with torch.no_grad():
+        k3a, k4a = run_backward_kernels(*args)
+        k3b, k4b = run_backward_kernels(*args)
+        torch.cuda.reset_peak_memory_stats()
+        plain3, plain4 = run_backward_plain(pairs, feat9, prep.tiles_touched,
+                                            dC, dT, W, H, cfg)
+        torch.cuda.synchronize()
+    log(f"20k/256x256: plain backward peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(torch.equal(k3a, k3b), "K3 bit-identical across two runs")
+    check(torch.equal(k4a, k4b), "K4 bit-identical across two runs")
+    log("20k/256x256: K3 and K4 bit-identical across two runs")
+    return compare_backward(k3a, k4a, plain3, plain4, "20k/256x256")
+
+
+def write_colmap_model(sparse, n_views, width, height, fx, points=None,
+                       binary=False):
     from gs2mesh_torch.core import colmap_io
     from gs2mesh_torch.core.transforms import rotmat2qvec_wxyz
 
@@ -173,7 +278,9 @@ def write_colmap_model(sparse, n_views, width, height, fx):
             id=i + 1, qvec=rotmat2qvec_wxyz(R), tvec=t, camera_id=1,
             name=f"{i:03}.png", xys=np.zeros((0, 2)),
             point3D_ids=np.zeros((0,), np.int64))
-    colmap_io.write_model_text(sparse, cams, images, {})
+    write = colmap_io.write_model_binary if binary else \
+        colmap_io.write_model_text
+    write(sparse, cams, images, points or {})
 
 
 def phase_main_path(work):
@@ -244,6 +351,304 @@ def phase_main_path(work):
     return r, renders, launches
 
 
+def bench_points(d):
+    """COLMAP points3D of a sphere_scene dict: the centres and their DC
+    colours as 8-bit RGB."""
+    from gs2mesh_torch.core.colmap_io import ColmapPoint3D
+    from gs2mesh_torch.core.sh import C0
+
+    rgb = np.clip((d["features_dc"][:, 0] * C0 + 0.5) * 255.0, 0, 255)
+    empty = np.zeros((0,), np.int64)
+    return {i + 1: ColmapPoint3D(i + 1, xyz, c, 0.0, empty, empty)
+            for i, (xyz, c) in enumerate(zip(d["xyz"].astype(np.float64),
+                                              rgb.round().astype(np.uint8)))}
+
+
+def bound(nbytes, nops):
+    """Least time (ms) for the work on the card and what sets it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def backward_rows(train_t, launches):
+    rows = []
+    for name, src, replaces, key in (
+            ("composite_backward", "gs2mesh_torch/csrc/composite.cu",
+             "gs2mesh_tpu/ops/rasterizer/pallas_kernels.py:271", "k3"),
+            ("segment_sum", "gs2mesh_torch/csrc/segsum.cu",
+             "gs2mesh_tpu/ops/rasterizer/emit.py:659", "k4")):
+        ms, plain_ms, err, nbytes, nops = train_t[key]
+        bms, by = bound(nbytes, nops)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces,
+                     "launches": launches[key.upper()], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None})
+    # K3 also stands for the compact form of the same TPU kernel body.
+    rows[0]["also_replaces"] = \
+        "gs2mesh_tpu/ops/rasterizer/pallas_kernels.py:704"
+    return rows
+
+
+def kernel_counts():
+    from gs2mesh_torch.ops.rasterizer.composite import (
+        composite_backward_cuda, composite_cuda)
+    from gs2mesh_torch.ops.rasterizer.emit import (emission_cuda,
+                                                   segment_sum_cuda)
+
+    return {"K1": emission_cuda, "K2": composite_cuda,
+            "K3": composite_backward_cuda, "K4": segment_sum_cuda}
+
+
+def phase_train(work):
+    """The training path at full width through the normal entry points:
+    8 target views of the 300k SH-3 bench sphere rendered by the port at
+    960x576 and written as PNGs with a binary COLMAP model whose points3D
+    hold the 300k centres; load_colmap_scene -> from_point_cloud ->
+    Trainer(device="cuda"); 20 iterations from 3090 (active SH degree 3,
+    a densify at 3100), then an opacity reset and 5 more."""
+    from gs2mesh_torch.core.camera import make_camera
+    from gs2mesh_torch.core.png import write_png
+    from gs2mesh_torch.core.transforms import qvec2rotmat_wxyz
+    from gs2mesh_torch.core import colmap_io
+    from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
+    from gs2mesh_torch.train.scene import load_colmap_scene
+    from gs2mesh_torch.train.trainer import TrainConfig, Trainer
+
+    n_gauss, W, H, n_views = 300_000, 960, 576, 8
+    fov = math.radians(60)
+    fx = W / (2 * math.tan(fov / 2))
+    d = sphere_scene(n_gauss, seed=0)
+    colmap_dir = os.path.join(work, "train_scene")
+    sparse = os.path.join(colmap_dir, "sparse", "0")
+    write_colmap_model(sparse, n_views, W, H, fx, points=bench_points(d),
+                       binary=True)
+    os.makedirs(os.path.join(colmap_dir, "images"))
+    target = GaussianModel(params_from_numpy(d), 3).raster_inputs()
+    rcfg = RasterizerConfig(pair_capacity=1 << 22)
+    with torch.no_grad():
+        for im in colmap_io.read_images_binary(
+                os.path.join(sparse, "images.bin")).values():
+            R = qvec2rotmat_wxyz(im.qvec)
+            cam = make_camera(R.T, im.tvec, fov, 2 * math.atan(H / (2 * fx)),
+                              W, H)
+            out = rasterize(target["means3d"], target["scales"],
+                            target["rotations"], target["opacities"],
+                            target["shs"], cam, 3, cfg=rcfg)
+            check(not bool(out.overflow), "target render overflow")
+            img = (out.image.clamp(0, 1) * 255).round().to(torch.uint8)
+            write_png(os.path.join(colmap_dir, "images", im.name),
+                      img.permute(1, 2, 0).cpu().numpy())
+    del target
+
+    t0 = time.perf_counter()
+    scene = load_colmap_scene(colmap_dir, device="cuda")
+    check(len(scene.cameras) == n_views and scene.points.shape[0] == n_gauss,
+          "scene views / points")
+    model = GaussianModel.from_point_cloud(
+        scene.points, scene.colors, spatial_lr_scale=scene.nerf_norm_radius,
+        device="cuda")
+    trainer = Trainer(model=model, cameras=scene.cameras, images=scene.images,
+                      cfg=TrainConfig(), rcfg=rcfg,
+                      scene_extent=scene.nerf_norm_radius, device="cuda")
+    torch.cuda.synchronize()
+    log(f"train set-up: load_colmap_scene + from_point_cloud + Trainer "
+        f"{time.perf_counter() - t0:.2f} s; capacity {model.capacity}, "
+        f"scene extent {scene.nerf_norm_radius:.4f}")
+
+    steps = []
+
+    def record(tr, out):
+        torch.cuda.synchronize()
+        steps.append(dict(it=tr.iteration, t=time.perf_counter(),
+                          loss=float(out.loss), alive=tr.model.num_alive(),
+                          pairs=int(out.num_pairs),
+                          capacity=tr.model.capacity))
+
+    trainer.iteration = 3090
+    counters = kernel_counts()
+    for k in counters.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    trainer.train(20, callback=record)
+    trainer.reset_opacity()
+    trainer.train(5, callback=record)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+
+    prev_t = t_start
+    for rec in steps:
+        rec["ms"] = (rec.pop("t") - prev_t) * 1e3
+        prev_t += rec["ms"] / 1e3
+        log(f"train it {rec['it']}: loss {rec['loss']:.6f}, "
+            f"{rec['ms']:.2f} ms, pairs {rec['pairs']}, alive "
+            f"{rec['alive']}, capacity {rec['capacity']}")
+    n_steps = len(steps)
+    plain = [r["ms"] for r in steps[1:] if r["it"] not in (3100, 3111)]
+    log(f"host wall per step (steps 2-25 without the densify and reset "
+        f"steps): median {np.median(plain):.2f} ms, min {min(plain):.2f}, "
+        f"max {max(plain):.2f}")
+    log(f"train launches over {n_steps} steps: {launches}")
+    check(trainer.iteration == 3115 and n_steps == 25,
+          f"25 taken steps ({n_steps}, iteration {trainer.iteration})")
+    check(all(v == n_steps for v in launches.values()),
+          f"K1-K4 once per taken step: {launches}")
+    check(trainer.rcfg.pair_capacity == 1 << 22, "no pair overflow")
+    check(trainer.model.active_sh_degree == 3, "active SH degree 3")
+    losses = [rec["loss"] for rec in steps]
+    check(all(math.isfinite(v) for v in losses), "finite losses")
+    first, last = np.mean(losses[:4]), np.mean(losses[16:20])
+    log(f"loss: first 4 steps {first:.6f}, steps 17-20 {last:.6f}, after "
+        f"the opacity reset {losses[20]:.6f} -> {losses[-1]:.6f}")
+    check(last < first, "loss falls over the 20 steps")
+    before = next(r["alive"] for r in steps if r["it"] == 3099)
+    after = next(r["alive"] for r in steps if r["it"] == 3100)
+    log(f"densify at 3100: alive {before} -> {after}")
+    check(after > 0.9 * before, "densify keeps > 90% of the alive rows")
+    for t in trainer.model.params.tensors():
+        check(bool(torch.isfinite(t).all()), "finite params")
+    for st in trainer.optimizer.state.values():
+        for k in ("exp_avg", "exp_avg_sq"):
+            check(bool(torch.isfinite(st[k]).all()), "finite Adam moments")
+    return trainer, float(np.median(plain)), launches
+
+
+def phase_train_timings(trainer, step_wall_ms):
+    """One training step's stages (CUDA events, view 0), K3 and K4 at the
+    step's shapes beside their plain versions, and the device idle share
+    of three profiled steps, also against step_wall_ms, the unprofiled
+    median host wall of a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs2mesh_torch.ops.rasterizer.composite import (
+        composite_backward_cuda, composite_cuda)
+    from gs2mesh_torch.ops.rasterizer.emit import (build_feat9,
+                                                   emission_cuda,
+                                                   segment_sum_cuda,
+                                                   segment_sum_plain,
+                                                   sort_pairs)
+    from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
+    from gs2mesh_torch.ops.rasterizer.tile_render import (
+        composite_backward_plain, composite_plain, pair_rows)
+    from gs2mesh_torch.ops.ssim import gs_loss
+    from gs2mesh_torch.models.gaussians import activations
+    from gs2mesh_torch.train.trainer import render_model
+
+    tr = trainer
+    m, cam, cfg = tr.model, tr.cameras[0], tr.rcfg
+    W, H = cam.width, cam.height
+    target, bg = tr._image_dev(0), tr._bg()
+    leaves = m.params.tensors()
+
+    def stage_times():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        out = render_model(m.params, m.state.alive, cam, 3, bg, cfg)
+        ev[1].record()
+        loss = gs_loss(out.image, target)
+        ev[2].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[3].record()
+        alive = m.state.alive
+        for leaf, g in zip(leaves, grads):
+            leaf.grad = torch.where(
+                alive.reshape((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
+        tr.optimizer.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        for leaf in leaves:
+            leaf.grad = None
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+    stage_times()
+    runs = np.array([stage_times() for _ in range(5)])
+    fwd, loss_ms, bwd, adam = runs.mean(axis=0)
+
+    # The step's compositor inputs and its true image cotangent.
+    with torch.no_grad():
+        inp = activations(m.params, m.state.alive)
+        prep = preprocess(inp["means3d"], inp["scales"], inp["rotations"],
+                          inp["opacities"], inp["shs"], cam, 3, cfg)
+        feat9 = build_feat9(prep)
+        gx, gy = cfg.grid_size(W, H)
+        pairs = sort_pairs(emission_cuda(feat9, prep.depths, prep.rect,
+                                         prep.tiles_touched, W, H, cfg),
+                           gx * gy)
+        color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
+                                        pairs.tile_counts, feat9, W, H, cfg)
+    image = (color + final_T[None] * bg[:, None, None]).requires_grad_(True)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    loss = gs_loss(image, target)
+    t0.record()
+    (dC,) = torch.autograd.grad(loss, image)
+    t1.record()
+    torch.cuda.synchronize()
+    loss_bwd = t0.elapsed_time(t1)
+    dT = (dC * bg[:, None, None]).sum(0)
+    bargs = (pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
+             cfg)
+    with torch.no_grad():
+        k3, k4 = run_backward_kernels(*bargs)
+        plain3, plain4 = run_backward_plain(pairs, feat9, prep.tiles_touched,
+                                            dC, dT, W, H, cfg)
+        torch.cuda.synchronize()
+        k3_err, k4_err = compare_backward(k3, k4, plain3, plain4,
+                                          "300k/960x576 train step")
+        k3_ms = cuda_time_ms(lambda: composite_backward_cuda(
+            pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
+            feat9, color, final_T, dC, dT, W, H, cfg), 20)
+        k4_ms = cuda_time_ms(lambda: segment_sum_cuda(
+            k3, pairs.offsets, prep.tiles_touched), 50)
+        plain3_ms = cuda_time_ms(lambda: composite_backward_plain(
+            pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
+            dC, dT, W, H, cfg, int(pairs.tile_counts.max())), 1,
+            warm=False)
+        plain4_ms = cuda_time_ms(lambda: segment_sum_plain(
+            k3, pairs.offsets, prep.tiles_touched), 3)
+        n_eval = int(composite_plain(pair_rows(feat9, pairs.ids),
+                                     pairs.tile_starts, pairs.tile_counts, W,
+                                     H, cfg,
+                                     int(pairs.tile_counts.max())).n_evaluated)
+    preprocess_bwd = bwd - loss_bwd - k3_ms - k4_ms
+    log(f"train step stages at 300k/960x576 (CUDA events, mean of 5 steps, "
+        f"ms): forward {fwd:.4f}, loss {loss_ms:.4f}, backward {bwd:.4f} = "
+        f"[loss backward {loss_bwd:.4f}, K3 {k3_ms:.4f}, K4 "
+        f"{k4_ms:.4f}, autograd through preprocess and the "
+        f"activations {preprocess_bwd:.4f}], Adam {adam:.4f}; step total "
+        f"{fwd + loss_ms + bwd + adam:.4f}")
+    log(f"K3 / K4 standalone ms: K3 {k3_ms:.4f} (plain {plain3_ms:.1f}), K4 "
+        f"{k4_ms:.4f} (plain {plain4_ms:.1f})")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0w = time.perf_counter()
+        saved = tr.iteration
+        tr.train(3)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0w) * 1e6
+    check(tr.iteration == saved + 3, "profiled steps taken")
+    busy_ms = report_profile(prof, wall_us, 3, "step")
+    if busy_ms is not None:
+        log(f"device busy {busy_ms:.3f} ms/step against the unprofiled "
+            f"median step wall {step_wall_ms:.3f} ms: idle share "
+            f"{1 - busy_ms / step_wall_ms:.3f}")
+
+    n_live = int(pairs.tile_counts.sum())
+    N, K, P = feat9.shape[0], pairs.ids.shape[0], W * H
+    k3_bytes = n_live * (4 + 8 + 36) + N * 36 + 8 * P * 4 + gx * gy * 8
+    k4_bytes = int(pairs.num_pairs) * 36 + N * (8 + 4 + 36)
+    log(f"K3 work: {n_live} live pairs, {n_eval} (pair, pixel) evaluations, "
+        f"{n_eval * K3_OPS_PER_EVAL} FP32 ops, {k3_bytes} bytes; K4 bytes "
+        f"{k4_bytes} over {int(pairs.num_pairs)} slots (capacity {K})")
+    return dict(k3=(k3_ms, plain3_ms, k3_err, k3_bytes,
+                    n_eval * K3_OPS_PER_EVAL),
+                k4=(k4_ms, plain4_ms, k4_err, k4_bytes, 0))
+
+
 def phase_timings(r, launches):
     """K1 and K2 at the main path's shapes (view 0, left), each beside its
     plain version on the same inputs."""
@@ -254,7 +659,8 @@ def phase_timings(r, launches):
                                                    emission_plain,
                                                    sort_pairs)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
-    from gs2mesh_torch.ops.rasterizer.tile_render import composite_plain
+    from gs2mesh_torch.ops.rasterizer.tile_render import (composite_plain,
+                                                          pair_rows)
 
     c = r.cameras[0]["left"]
     W, H = c["width"], c["height"]
@@ -278,7 +684,9 @@ def phase_timings(r, launches):
                  H, cfg)
         color_k, T_k = composite_cuda(*cargs)
         mpt = int(pairs.tile_counts.max())
-        plain = composite_plain(*cargs, max_per_tile=mpt)
+        pargs = (pair_rows(feat9, pairs.ids), pairs.tile_starts,
+                 pairs.tile_counts, W, H, cfg, mpt)
+        plain = composite_plain(*pargs)
         k2_err = compare_composite(color_k, T_k, plain.color, plain.final_T,
                                    "300k/960x576")
 
@@ -288,8 +696,7 @@ def phase_timings(r, launches):
             k1_plain=cuda_time_ms(lambda: emission_plain(*eargs), 5),
             sort=cuda_time_ms(lambda: sort_pairs(em, gx * gy), 20),
             k2=cuda_time_ms(lambda: composite_cuda(*cargs), 50),
-            k2_plain=cuda_time_ms(
-                lambda: composite_plain(*cargs, max_per_tile=mpt), 2))
+            k2_plain=cuda_time_ms(lambda: composite_plain(*pargs), 2))
     log("device ms per stage at 300k/960x576 (CUDA events): "
         + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
 
@@ -301,10 +708,6 @@ def phase_timings(r, launches):
     log(f"K2 work: {n_live} live pairs, {n_eval} (pair, pixel) evaluations "
         f"({n_eval / (W * H):.1f} per pixel), {k2_ops} FP32 ops, "
         f"{k2_bytes} bytes; K1 bytes {k1_bytes}")
-
-    def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
 
     rows = []
     for name, src, replaces, key, err, (nb, nops) in (
@@ -324,6 +727,32 @@ def phase_timings(r, launches):
     return rows
 
 
+def report_profile(prof, wall_us, n, unit):
+    """Device-busy share of the wall time of n profiled units, and the
+    kernels that take the device time. Only device-side activity
+    (kernels, copies, fills) counts: an operator's row and a
+    record_function range on the device track repeat the time of the
+    kernels under them."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    busy_us = sum(t for t, _ in by_name.values())
+    if busy_us == 0:
+        log("profile: the profiler recorded no device time (not measured)")
+        return None
+    log(f"profile over {n} {unit}s: wall {wall_us / n / 1e3:.3f} ms/{unit}, "
+        f"device busy {busy_us / n / 1e3:.3f} ms/{unit}, idle share "
+        f"{1 - busy_us / wall_us:.3f}, "
+        f"{sum(c for _, c in by_name.values()) // n} device events/{unit}")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {t / n / 1e3:8.4f} ms/{unit} x{c // n:<4d} {name[:90]}")
+    return busy_us / n / 1e3
+
+
 def phase_profile(r, n=3):
     """torch.profiler over n renders of view 0: device-busy share of the
     render wall time and the kernels that take the device time."""
@@ -339,17 +768,7 @@ def phase_profile(r, n=3):
             r.render_single(cam)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us == 0:
-        log("profile: the profiler recorded no device time (not measured)")
-        return
-    log(f"profile over {n} renders: wall {wall_us / n / 1e3:.3f} ms/render, "
-        f"device busy {busy_us / n / 1e3:.3f} ms/render, idle share "
-        f"{1 - busy_us / wall_us:.3f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"  {e.self_device_time_total / n / 1e3:8.4f} ms/render "
-            f"x{e.count // n:<3d} {e.key[:90]}")
+    report_profile(prof, wall_us, n, "render")
 
 
 def main():
@@ -379,7 +798,7 @@ def main():
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t_phase = time.perf_counter()
-    phase_kernels_vs_plain()
+    phase_backward_vs_plain(*phase_kernels_vs_plain())
     log(f"phase kernels-vs-plain: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     r, renders, launches = phase_main_path(work)
@@ -387,7 +806,17 @@ def main():
     t_phase = time.perf_counter()
     rows = phase_timings(r, launches)
     phase_profile(r)
+    del r
     log(f"phase timings + profile: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    trainer, step_wall_ms, train_launches = phase_train(work)
+    log(f"phase train: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    rows += backward_rows(phase_train_timings(trainer, step_wall_ms),
+                          train_launches)
+    for row, key in zip(rows, ("K1", "K2")):
+        row["launches_train"] = train_launches[key]
+    log(f"phase train timings + profile: {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work)
 
     print(json.dumps({"kernels": rows}))

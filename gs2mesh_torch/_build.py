@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The first
 call to ``library`` builds every source at once (one ``nvcc`` per source,
-started together) into ``csrc/build/``, keyed by a hash of the source and
-the flags so a changed source is rebuilt and an unchanged one is reused.
+started together) into ``csrc/build/``, keyed by a hash of the source,
+every header in ``csrc/`` and the flags, so a changed source or header is
+rebuilt and an unchanged one is reused.
 Nothing is built at import time.
 """
 
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

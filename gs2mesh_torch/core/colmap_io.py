@@ -1,19 +1,37 @@
-"""COLMAP sparse-model IO, text format (the public COLMAP file-format spec).
+"""COLMAP sparse-model IO, text and binary formats (the public COLMAP
+file-format spec).
 
-Covers what the stereo-pair renderer reads: cameras, images (poses + 2D
-points), points3D, and the world-to-camera poses in image-id order. The
-binary readers of the reference package are not ported yet.
+Covers what the pipeline reads: cameras, images (poses + 2D points),
+points3D, ``read_model`` (binary preferred, then text) and the
+world-to-camera poses in image-id order.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
 
 from gs2mesh_torch.core.transforms import qvec2rotmat_wxyz
+
+CAMERA_MODELS = {
+    # model_id: (name, num_params)
+    0: ("SIMPLE_PINHOLE", 3),
+    1: ("PINHOLE", 4),
+    2: ("SIMPLE_RADIAL", 4),
+    3: ("RADIAL", 5),
+    4: ("OPENCV", 8),
+    5: ("OPENCV_FISHEYE", 8),
+    6: ("FULL_OPENCV", 12),
+    7: ("FOV", 5),
+    8: ("SIMPLE_RADIAL_FISHEYE", 4),
+    9: ("RADIAL_FISHEYE", 5),
+    10: ("THIN_PRISM_FISHEYE", 12),
+}
+CAMERA_MODEL_IDS = {name: mid for mid, (name, _) in CAMERA_MODELS.items()}
 
 
 @dataclass
@@ -176,6 +194,129 @@ def write_points3D_text(path: str, points: Dict[int, ColmapPoint3D]) -> None:
             rgb = " ".join(str(int(v)) for v in p.rgb)
             track = " ".join(f"{int(i)} {int(j)}" for i, j in zip(p.image_ids, p.point2D_idxs))
             f.write(f"{p.id} {xyz} {rgb} {repr(float(p.error))} {track}\n")
+
+
+# ---------------------------------------------------------------------------
+# Binary format
+# ---------------------------------------------------------------------------
+
+def _read(f, fmt: str):
+    return struct.unpack("<" + fmt, f.read(struct.calcsize("<" + fmt)))
+
+
+def read_cameras_binary(path: str) -> Dict[int, ColmapCamera]:
+    cams: Dict[int, ColmapCamera] = {}
+    with open(path, "rb") as f:
+        (n,) = _read(f, "Q")
+        for _ in range(n):
+            cam_id, model_id, w, h = _read(f, "iiQQ")
+            name, nparams = CAMERA_MODELS[model_id]
+            params = np.array(_read(f, "d" * nparams))
+            cams[cam_id] = ColmapCamera(cam_id, name, int(w), int(h), params)
+    return cams
+
+
+def read_images_binary(path: str) -> Dict[int, ColmapImage]:
+    imgs: Dict[int, ColmapImage] = {}
+    with open(path, "rb") as f:
+        (n,) = _read(f, "Q")
+        for _ in range(n):
+            vals = _read(f, "idddddddi")
+            name = b""
+            while (c := f.read(1)) != b"\x00":
+                if not c:
+                    raise ValueError(f"{path}: truncated image name")
+                name += c
+            (npts,) = _read(f, "Q")
+            data = np.frombuffer(f.read(24 * npts),
+                                 dtype=np.dtype("<f8, <f8, <i8"))
+            xys = np.stack([data["f0"], data["f1"]], axis=1)
+            ids = data["f2"].astype(np.int64)
+            imgs[vals[0]] = ColmapImage(vals[0], np.array(vals[1:5]),
+                                        np.array(vals[5:8]), vals[8],
+                                        name.decode("utf-8"), xys, ids)
+    return imgs
+
+
+def read_points3D_binary(path: str) -> Dict[int, ColmapPoint3D]:
+    pts: Dict[int, ColmapPoint3D] = {}
+    with open(path, "rb") as f:
+        (n,) = _read(f, "Q")
+        for _ in range(n):
+            vals = _read(f, "QdddBBBd")
+            (track_len,) = _read(f, "Q")
+            track = np.frombuffer(f.read(8 * track_len),
+                                  dtype=np.dtype("<i4, <i4"))
+            pts[int(vals[0])] = ColmapPoint3D(
+                id=int(vals[0]), xyz=np.array(vals[1:4]),
+                rgb=np.array(vals[4:7]), error=float(vals[7]),
+                image_ids=track["f0"].astype(np.int64),
+                point2D_idxs=track["f1"].astype(np.int64))
+    return pts
+
+
+def write_cameras_binary(path: str, cameras: Dict[int, ColmapCamera]) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cameras)))
+        for cam in cameras.values():
+            f.write(struct.pack("<iiQQ", cam.id, CAMERA_MODEL_IDS[cam.model],
+                                cam.width, cam.height))
+            f.write(struct.pack("<" + "d" * len(cam.params),
+                                *[float(p) for p in cam.params]))
+
+
+def write_images_binary(path: str, images: Dict[int, ColmapImage]) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for im in images.values():
+            f.write(struct.pack("<idddddddi", im.id,
+                                *[float(v) for v in im.qvec],
+                                *[float(v) for v in im.tvec], im.camera_id))
+            f.write(im.name.encode("utf-8") + b"\x00")
+            f.write(struct.pack("<Q", len(im.xys)))
+            for (x, y), pid in zip(im.xys, im.point3D_ids):
+                f.write(struct.pack("<ddq", float(x), float(y), int(pid)))
+
+
+def write_points3D_binary(path: str,
+                          points: Dict[int, ColmapPoint3D]) -> None:
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(points)))
+        for p in points.values():
+            f.write(struct.pack("<QdddBBBd", int(p.id),
+                                *[float(v) for v in p.xyz],
+                                *[int(v) for v in p.rgb], float(p.error)))
+            f.write(struct.pack("<Q", len(p.image_ids)))
+            for i, j in zip(p.image_ids, p.point2D_idxs):
+                f.write(struct.pack("<ii", int(i), int(j)))
+
+
+def read_model(sparse_dir: str):
+    """(cameras, images, points) of a COLMAP sparse model directory,
+    preferring .bin over .txt; points3D may be absent ({})."""
+    def pick(stem, bin_fn, txt_fn):
+        b = os.path.join(sparse_dir, stem + ".bin")
+        t = os.path.join(sparse_dir, stem + ".txt")
+        if os.path.exists(b):
+            return bin_fn(b)
+        if os.path.exists(t):
+            return txt_fn(t)
+        raise FileNotFoundError(f"missing {stem}.bin/.txt in {sparse_dir}")
+
+    cameras = pick("cameras", read_cameras_binary, read_cameras_text)
+    images = pick("images", read_images_binary, read_images_text)
+    try:
+        points = pick("points3D", read_points3D_binary, read_points3D_text)
+    except FileNotFoundError:
+        points = {}
+    return cameras, images, points
+
+
+def write_model_binary(sparse_dir: str, cameras, images, points) -> None:
+    os.makedirs(sparse_dir, exist_ok=True)
+    write_cameras_binary(os.path.join(sparse_dir, "cameras.bin"), cameras)
+    write_images_binary(os.path.join(sparse_dir, "images.bin"), images)
+    write_points3D_binary(os.path.join(sparse_dir, "points3D.bin"), points)
 
 
 def write_model_text(sparse_dir: str, cameras, images, points) -> None:

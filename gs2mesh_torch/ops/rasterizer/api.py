@@ -1,8 +1,13 @@
 """Public rasterization API: preprocess -> emit + sort -> composite -> image.
 
-Forward-only port of gs2mesh_tpu ops/rasterizer/api.py::rasterize in its
-exact-carry semantics. CUDA tensors run kernels K1 (emission) and K2
-(compositing); CPU tensors run the plain versions of both.
+Port of gs2mesh_tpu ops/rasterizer/api.py::rasterize in its exact-carry
+semantics, differentiable w.r.t. means3d / scales / rotations / opacities /
+shs / bg and the ``screenspace_offset`` densification probe. CUDA tensors
+run kernels K1 (emission), K2 (compositing), and in the backward K3
+(compositing backward) and K4 (per-gaussian sum); CPU tensors run the
+plain versions of all four. Emission and the sort are not differentiated
+(they only order the pairs); autograd carries K4's (N, 9) gradient of the
+feature rows through preprocess and the activations.
 """
 
 from __future__ import annotations
@@ -35,9 +40,13 @@ def rasterize(means3d, scales, rotations, opacities, shs, camera: Camera,
               sh_degree: int, bg: Optional[torch.Tensor] = None,
               cfg: RasterizerConfig = RasterizerConfig(),
               scale_modifier: float = 1.0,
+              screenspace_offset: Optional[torch.Tensor] = None,
               max_per_tile: int = 4096) -> RasterizeOutput:
     """Render a Gaussian cloud through ``camera`` on the inputs' device.
 
+    screenspace_offset: optional (N, 2) zeros added to the projected means;
+      its gradient is dL/dmeans2d in pixel units (the reference's
+      screenspace_points retain_grad trick).
     max_per_tile: per-tile pair bound of the plain (CPU) compositor.
     """
     dev = means3d.device
@@ -47,14 +56,16 @@ def rasterize(means3d, scales, rotations, opacities, shs, camera: Camera,
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
     prep = preprocess(means3d, scales, rotations, opacities, shs, camera,
                       sh_degree, cfg, scale_modifier)
+    if screenspace_offset is not None:
+        prep = prep._replace(means2d=prep.means2d + screenspace_offset)
     feat9 = build_feat9(prep)
     W, H = camera.width, camera.height
     gx, gy = cfg.grid_size(W, H)
-    pairs = sort_pairs(emit_pairs(feat9, prep.depths, prep.rect,
-                                  prep.tiles_touched, W, H, cfg), gx * gy)
+    with torch.no_grad():
+        pairs = sort_pairs(emit_pairs(feat9.detach(), prep.depths, prep.rect,
+                                      prep.tiles_touched, W, H, cfg), gx * gy)
     color, final_T, tile_overflow = composite(
-        pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H, cfg,
-        max_per_tile)
+        feat9, pairs, prep.tiles_touched, W, H, cfg, max_per_tile)
     image = color + final_T[None] * bg[:, None, None]
     return RasterizeOutput(image=image, final_T=final_T, radii=prep.radius,
                            num_pairs=pairs.num_pairs, overflow=pairs.overflow,

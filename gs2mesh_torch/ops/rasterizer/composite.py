@@ -1,8 +1,16 @@
-"""Tile compositing forward: kernel K2 (``csrc/composite.cu``) and dispatch.
+"""Tile compositing as a differentiable op: kernels K2 (forward) and K3
+(backward) in ``csrc/composite.cu``, K4 (per-gaussian sum) in
+``csrc/segsum.cu``, and their plain versions.
 
-``composite_cuda`` launches K2, which streams every pair of every tile (no
-per-tile cap, so it never sets ``tile_overflow``); ``composite`` takes the
-plain compositor (tile_render.composite_plain) for CPU tensors.
+``CompositeFunction`` maps per-gaussian feature rows feat9 (N, 9) to the
+pre-background color (3, H, W) and final_T (H, W). On CUDA tensors its
+forward launches K2 (``composite_cuda``) and its backward launches K3
+(``composite_backward_cuda``, per-pair gradients written at their emission
+slots) and K4 (``segment_sum_cuda``, each gaussian's contiguous slot
+segment summed). On CPU tensors it runs the plain versions
+(``tile_render.composite_plain``, ``composite_backward_plain`` and
+``emit.segment_sum_plain``). K2 streams every pair of every tile (no
+per-tile cap, so it never sets ``tile_overflow``).
 """
 
 from __future__ import annotations
@@ -14,8 +22,11 @@ import torch
 
 from gs2mesh_torch import _build
 from gs2mesh_torch.ops.rasterizer.config import RasterizerConfig
-from gs2mesh_torch.ops.rasterizer.emit import _check_cuda
-from gs2mesh_torch.ops.rasterizer.tile_render import composite_plain
+from gs2mesh_torch.ops.rasterizer.emit import (SortedPairs, _check_cuda,
+                                               segment_sum)
+from gs2mesh_torch.ops.rasterizer.tile_render import (composite_backward_plain,
+                                                      composite_plain,
+                                                      pair_rows)
 
 
 @functools.lru_cache(maxsize=None)
@@ -27,9 +38,17 @@ def _k2():
     return fn
 
 
-def composite_cuda(ids_sorted, tile_starts, tile_counts, feat9, width: int,
-                   height: int, cfg: RasterizerConfig):
-    """Kernel K2. Returns (color (3, H, W) before background, final_T (H, W))."""
+@functools.lru_cache(maxsize=None)
+def _k3():
+    fn = _build.library("composite").gs_composite_backward
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tiles(ids_sorted, tile_starts, tile_counts, feat9, width, height,
+                 cfg, **more):
     if cfg.tile != 32:
         raise ValueError("the CUDA compositor runs 32x32 tiles")
     if width <= 0 or height <= 0:
@@ -38,7 +57,15 @@ def composite_cuda(ids_sorted, tile_starts, tile_counts, feat9, width: int,
     _check_cuda(ids_sorted=(ids_sorted, torch.int32, (ids_sorted.shape[0],)),
                 tile_starts=(tile_starts, torch.int32, (gx * gy,)),
                 tile_counts=(tile_counts, torch.int32, (gx * gy,)),
-                feat9=(feat9, torch.float32, (feat9.shape[0], 9)))
+                feat9=(feat9, torch.float32, (feat9.shape[0], 9)), **more)
+    return gx, gy
+
+
+def composite_cuda(ids_sorted, tile_starts, tile_counts, feat9, width: int,
+                   height: int, cfg: RasterizerConfig):
+    """Kernel K2. Returns (color (3, H, W) before background, final_T (H, W))."""
+    gx, gy = _check_tiles(ids_sorted, tile_starts, tile_counts, feat9, width,
+                          height, cfg)
     dev = feat9.device
     color = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     final_T = torch.empty((height, width), dtype=torch.float32, device=dev)
@@ -56,19 +83,91 @@ def composite_cuda(ids_sorted, tile_starts, tile_counts, feat9, width: int,
 composite_cuda.launches = 0
 
 
-def composite(ids_sorted, tile_starts, tile_counts, feat9, width: int,
-              height: int, cfg: RasterizerConfig,
-              max_per_tile: int = 4096):
-    """Kernel K2 for CUDA tensors, the plain compositor for CPU tensors.
+def composite_backward_cuda(ids_sorted, order, tile_starts, tile_counts,
+                            feat9, color, final_T, dcolor, dfinal_T,
+                            width: int, height: int, cfg: RasterizerConfig):
+    """Kernel K3: per-pair gradients (K, 9) in feat9 column order, each at
+    its EMISSION slot (zero for pairs that are culled or never reached).
+    color / final_T are K2's outputs; dcolor / dfinal_T their cotangents."""
+    K = ids_sorted.shape[0]
+    img, hw = (3, height, width), (height, width)
+    dcolor, dfinal_T = dcolor.contiguous(), dfinal_T.contiguous()
+    gx, gy = _check_tiles(
+        ids_sorted, tile_starts, tile_counts, feat9, width, height, cfg,
+        order=(order, torch.int64, (K,)), color=(color, torch.float32, img),
+        final_T=(final_T, torch.float32, hw),
+        dcolor=(dcolor, torch.float32, img),
+        dfinal_T=(dfinal_T, torch.float32, hw))
+    dev = feat9.device
+    dpairs = torch.zeros((K, 9), dtype=torch.float32, device=dev)
+    err = _k3()(ids_sorted.data_ptr(), order.data_ptr(),
+                tile_starts.data_ptr(), tile_counts.data_ptr(),
+                feat9.data_ptr(), color.data_ptr(), final_T.data_ptr(),
+                dcolor.data_ptr(), dfinal_T.data_ptr(), width, height, gx, gy,
+                cfg.alpha_min, cfg.alpha_clamp, cfg.transmittance_eps,
+                dpairs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"compositing backward kernel launch failed: CUDA "
+                           f"error {err}")
+    composite_backward_cuda.launches += 1
+    return dpairs
+
+
+composite_backward_cuda.launches = 0
+
+
+class CompositeFunction(torch.autograd.Function):
+    """feat9 (N, 9) -> (color (3, H, W) before background, final_T (H, W),
+    tile_overflow ()). Differentiable w.r.t. feat9 only."""
+
+    @staticmethod
+    def forward(ctx, feat9, ids_sorted, order, tile_starts, tile_counts,
+                offsets, tiles_touched, width: int, height: int,
+                cfg: RasterizerConfig, max_per_tile: int):
+        if feat9.is_cuda:
+            color, final_T = composite_cuda(ids_sorted, tile_starts,
+                                            tile_counts, feat9, width, height,
+                                            cfg)
+            tile_overflow = torch.zeros((), dtype=torch.bool,
+                                        device=feat9.device)
+        elif feat9.device.type == "cpu":
+            c = composite_plain(pair_rows(feat9, ids_sorted), tile_starts,
+                                tile_counts, width, height, cfg, max_per_tile)
+            color, final_T, tile_overflow = c.color, c.final_T, c.tile_overflow
+        else:
+            raise ValueError(f"unsupported device {feat9.device}")
+        ctx.save_for_backward(feat9, ids_sorted, order, tile_starts,
+                              tile_counts, offsets, tiles_touched, color,
+                              final_T)
+        ctx.args = (width, height, cfg, max_per_tile)
+        ctx.mark_non_differentiable(tile_overflow)
+        return color, final_T, tile_overflow
+
+    @staticmethod
+    def backward(ctx, dcolor, dfinal_T, _):
+        (feat9, ids_sorted, order, tile_starts, tile_counts, offsets,
+         tiles_touched, color, final_T) = ctx.saved_tensors
+        width, height, cfg, max_per_tile = ctx.args
+        if feat9.is_cuda:
+            dpairs = composite_backward_cuda(
+                ids_sorted, order, tile_starts, tile_counts, feat9, color,
+                final_T, dcolor, dfinal_T, width, height, cfg)
+        else:
+            dsorted = composite_backward_plain(
+                pair_rows(feat9, ids_sorted), tile_starts, tile_counts,
+                dcolor, dfinal_T, width, height, cfg, max_per_tile)
+            dpairs = torch.empty_like(dsorted)
+            dpairs[order] = dsorted
+        dfeat9 = segment_sum(dpairs, offsets, tiles_touched)
+        return (dfeat9,) + (None,) * 10
+
+
+def composite(feat9, pairs: SortedPairs, tiles_touched, width: int,
+              height: int, cfg: RasterizerConfig, max_per_tile: int = 4096):
+    """Kernels K2 / K3 / K4 for CUDA tensors, the plain versions for CPU
+    tensors. max_per_tile bounds the plain compositor's per-tile gather.
     Returns (color (3, H, W) before background, final_T (H, W),
     tile_overflow ())."""
-    if feat9.is_cuda:
-        color, final_T = composite_cuda(ids_sorted, tile_starts, tile_counts,
-                                        feat9, width, height, cfg)
-        return color, final_T, torch.zeros((), dtype=torch.bool,
-                                           device=feat9.device)
-    if feat9.device.type != "cpu":
-        raise ValueError(f"unsupported device {feat9.device}")
-    c = composite_plain(ids_sorted, tile_starts, tile_counts, feat9, width,
-                        height, cfg, max_per_tile)
-    return c.color, c.final_T, c.tile_overflow
+    return CompositeFunction.apply(
+        feat9, pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
+        pairs.offsets, tiles_touched, width, height, cfg, max_per_tile)

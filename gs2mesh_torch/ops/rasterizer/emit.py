@@ -16,6 +16,11 @@ CUDA reference's duplicateWithKeys + radix sort + identifyTileRanges):
 
 ``emission_cuda`` launches kernel K1 (``csrc/emit.cu``); ``emission_plain``
 is the same function in PyTorch ops. ``emit_pairs`` picks by device.
+
+Emission order is gaussian-major, so the backward's per-gaussian reduction
+is a sum over contiguous slot segments: ``segment_sum_cuda`` launches
+kernel K4 (``csrc/segsum.cu``) on per-pair gradients written at their
+emission slots; ``segment_sum_plain`` is the same sum in PyTorch ops.
 """
 
 from __future__ import annotations
@@ -38,12 +43,15 @@ class Emission(NamedTuple):
     """Emission-order slots (everything known before the sort)."""
     keys: torch.Tensor       # (K,) int64 packed [tile_id | depth msbs]
     ids: torch.Tensor        # (K,) int32 gaussian id, -1 past num_pairs
+    offsets: torch.Tensor    # (N,) int64 first slot of each gaussian
     num_pairs: torch.Tensor  # () int64 true emission count
     overflow: torch.Tensor   # () bool: pair_capacity exceeded
 
 
 class SortedPairs(NamedTuple):
     ids: torch.Tensor          # (K,) int32 gaussian id per sorted slot
+    order: torch.Tensor        # (K,) int64 emission slot of each sorted slot
+    offsets: torch.Tensor      # (N,) int64 first emission slot per gaussian
     tile_starts: torch.Tensor  # (T,) int32 start into the sorted pairs
     tile_counts: torch.Tensor  # (T,) int32 pairs of each tile
     num_pairs: torch.Tensor    # () int64
@@ -124,7 +132,7 @@ def emission_plain(feat9, depths, rect, tiles_touched, width: int,
     tile_id = torch.where(valid & alive, ty * gx + tx, num_tiles)
     keys = (tile_id << (32 - tb)) | _depth_msbs(depths[g], tb)
     ids = torch.where(valid, g, -1).to(torch.int32)
-    return Emission(keys=keys, ids=ids, num_pairs=num_pairs,
+    return Emission(keys=keys, ids=ids, offsets=offsets, num_pairs=num_pairs,
                     overflow=num_pairs > K)
 
 
@@ -167,8 +175,8 @@ def emission_cuda(feat9, depths, rect, tiles_touched, width: int,
     if err != 0:
         raise RuntimeError(f"emission kernel launch failed: CUDA error {err}")
     emission_cuda.launches += 1
-    return Emission(keys=keys, ids=ids, num_pairs=num_pairs[0],
-                    overflow=num_pairs[0] > K)
+    return Emission(keys=keys, ids=ids, offsets=offsets,
+                    num_pairs=num_pairs[0], overflow=num_pairs[0] > K)
 
 
 emission_cuda.launches = 0
@@ -210,6 +218,67 @@ def sort_pairs(em: Emission, num_tiles: int) -> SortedPairs:
     bounds = torch.arange(num_tiles + 1, dtype=torch.int64,
                           device=keys_s.device) << (32 - key_bits(num_tiles))
     edges = torch.searchsorted(keys_s, bounds, out_int32=True)
-    return SortedPairs(ids=em.ids[order], tile_starts=edges[:-1],
+    return SortedPairs(ids=em.ids[order], order=order, offsets=em.offsets,
+                       tile_starts=edges[:-1],
                        tile_counts=edges[1:] - edges[:-1],
                        num_pairs=em.num_pairs, overflow=em.overflow)
+
+
+def segment_sum_plain(dpairs, offsets, counts) -> torch.Tensor:
+    """Plain version of kernel K4: (K, 9) per-pair rows in emission order ->
+    (N, 9) per-gaussian sums over the slots [offsets[g], offsets[g] +
+    counts[g]) (clipped to K). Accumulates in float64 on the CPU, whose
+    index_add_ is sequential, so the result is the same on every run; it
+    is returned on the input's device."""
+    K, N = dpairs.shape[0], counts.shape[0]
+    cum = (offsets.to(torch.int64) + counts.to(torch.int64)).cpu()
+    slot = torch.arange(K, dtype=torch.int64)
+    g = torch.searchsorted(cum, slot, right=True)
+    live = g < N
+    out = torch.zeros((N, dpairs.shape[1]), dtype=torch.float64)
+    out.index_add_(0, g[live], dpairs.detach().cpu().to(torch.float64)[live])
+    return out.to(torch.float32).to(dpairs.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _k4():
+    fn = _build.library("segsum").gs_segment_sum
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def segment_sum_cuda(dpairs, offsets, counts) -> torch.Tensor:
+    """Kernel K4: one thread per gaussian sums its contiguous slot segment
+    in slot order (deterministic, no atomics). Same contract as
+    segment_sum_plain."""
+    K, N = dpairs.shape[0], counts.shape[0]
+    _check_cuda(dpairs=(dpairs, torch.float32, (K, 9)),
+                offsets=(offsets, torch.int64, (N,)),
+                counts=(counts, torch.int32, (N,)))
+    if N >= 2 ** 31:
+        raise ValueError(f"unsupported gaussian count {N}")
+    out = torch.empty((N, 9), dtype=torch.float32, device=dpairs.device)
+    if N == 0:
+        return out
+    err = _k4()(dpairs.data_ptr(), offsets.data_ptr(), counts.data_ptr(), N,
+                K, out.data_ptr(),
+                torch.cuda.current_stream(dpairs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment-sum kernel launch failed: CUDA error "
+                           f"{err}")
+    segment_sum_cuda.launches += 1
+    return out
+
+
+segment_sum_cuda.launches = 0
+
+
+def segment_sum(dpairs, offsets, counts) -> torch.Tensor:
+    """Kernel K4 for CUDA tensors, the plain version for CPU tensors."""
+    if dpairs.is_cuda:
+        return segment_sum_cuda(dpairs, offsets, counts)
+    if dpairs.device.type != "cpu":
+        raise ValueError(f"unsupported device {dpairs.device}")
+    return segment_sum_plain(dpairs, offsets, counts)

@@ -39,6 +39,11 @@ def _rot_rows(q):
             (2 * (x * z - r * y), 2 * (y * z + r * x), 1 - 2 * (x * x + y * y)))
 
 
+def quat_to_rotmat(q):
+    """(..., 4) normalized quaternion (w, x, y, z) -> (..., 3, 3) rotation."""
+    return torch.stack([torch.stack(row, -1) for row in _rot_rows(q)], -2)
+
+
 def cov3d_entries(scales, rotations, scale_modifier: float = 1.0):
     """(N,3) scales + (N,4) quats -> the 6 unique entries of R S S R^T."""
     R = _rot_rows(rotations)

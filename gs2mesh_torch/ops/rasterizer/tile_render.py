@@ -1,5 +1,5 @@
-"""Plain PyTorch tile compositor (the CPU path, and the reference kernel K2
-is held to).
+"""Plain PyTorch tile compositor, forward and backward (the CPU path, and
+the reference kernels K2 and K3 are held to).
 
 Port of gs2mesh_tpu ops/rasterizer/tile_render.py::_composite_tile over a
 per-tile gather of up to ``max_per_tile`` sorted pairs: front-to-back alpha
@@ -7,6 +7,13 @@ compositing with the reference's saturation semantics (alpha clamp 0.99,
 1/255 skip, T < 1e-4 stop that excludes the triggering gaussian), written
 as log-space prefix sums over the pair axis. Tiles are composited in batches
 so the (tiles, pairs, pixels) intermediates stay within a fixed budget.
+
+The compositor reads per-pair rows ``pair_feat = feat9[ids_sorted]`` (see
+``pair_rows``), so autograd through it yields per-pair gradients at sorted
+positions: ``composite_backward_plain`` is that autograd, taken one tile
+batch at a time (the plain version of kernel K3; the counterpart of the
+JAX package's ``render_tiles_xla`` autodiff). Like the reference backward
+(and K3), the gradient does not gate on the 0.99 alpha clamp.
 """
 
 from __future__ import annotations
@@ -28,6 +35,25 @@ class Composited(NamedTuple):
                                  # sequential order makes, over image pixels
 
 
+class _ClampNoGate(torch.autograd.Function):
+    """min(x, hi) whose gradient passes through unchanged (the reference
+    backward differentiates op*G, backward.cu:500-505)."""
+
+    @staticmethod
+    def forward(ctx, x, hi: float):
+        return torch.clamp_max(x, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def pair_rows(feat9: torch.Tensor, ids_sorted: torch.Tensor) -> torch.Tensor:
+    """(K, 9) feature row of each sorted slot (slots past the last pair,
+    id -1, read row 0; the compositor masks them)."""
+    return feat9[ids_sorted.to(torch.int64).clamp(0, feat9.shape[0] - 1)]
+
+
 def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
     """feat (B, L, 9) tile-local pair rows, valid (B, L); px/py (P,).
     Returns (C (B, 3, P), T (B, P), evaluated (B, L, P) bool)."""
@@ -42,7 +68,7 @@ def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
     # >= 1/255 knife edge must decide identically everywhere).
     power = (-0.5 * ca) * (dx * dx) + dy * ((-0.5 * cc) * dy - cb * dx)
     alpha_raw = op * torch.exp(power)
-    alpha = torch.clamp_max(alpha_raw, cfg.alpha_clamp)
+    alpha = _ClampNoGate.apply(alpha_raw, cfg.alpha_clamp)
     passes = (alpha_raw >= torch.tensor(cfg.alpha_min, dtype=torch.float32)) \
         & valid[..., None]
     alpha_eff = torch.where(passes, alpha, 0.0)
@@ -65,51 +91,106 @@ def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
     return C, torch.exp(cum_acc[:, -1]), evaluated
 
 
-def composite_plain(ids_sorted, tile_starts, tile_counts, feat9, width: int,
-                    height: int, cfg: RasterizerConfig,
-                    max_per_tile: int = 4096) -> Composited:
-    """ids_sorted (K,) gaussian id per sorted slot; tile ranges (T,);
-    feat9 (N, 9) rows with GLOBAL means."""
-    dev = feat9.device
+class _Layout(NamedTuple):
+    """Per-call constants of the batched per-tile gather."""
+    L: int                 # pairs gathered per tile
+    step: int              # tiles per batch
+    px: torch.Tensor       # (P,) tile-local pixel x
+    py: torch.Tensor       # (P,)
+    ox: torch.Tensor       # (T,) tile origin x
+    oy: torch.Tensor       # (T,)
+    in_image: torch.Tensor  # (T, P) bool
+
+
+def _layout(tile_counts, width, height, cfg, max_per_tile) -> _Layout:
+    dev = tile_counts.device
     gx, gy = cfg.grid_size(width, height)
     T, P, t = gx * gy, cfg.pixels_per_tile, cfg.tile
-    K, N = ids_sorted.shape[0], feat9.shape[0]
     counts = tile_counts.to(torch.int64)
     L = max(1, min(max_per_tile, int(counts.max())))
-
     p = torch.arange(P, device=dev)
-    px, py = (p % t).to(torch.float32), (p // t).to(torch.float32)
     tiles = torch.arange(T, device=dev)
     # Tile origins, so means become tile-local exactly as emission forms
     # them in the reference (mx - tx * tile in f32).
-    ox = ((tiles % gx) * t).to(torch.float32)
-    oy = ((tiles // gx) * t).to(torch.float32)
-    in_image = (((tiles % gx) * t)[:, None] + (p % t) < width) \
-        & (((tiles // gx) * t)[:, None] + (p // t) < height)   # (T, P)
-    ar = torch.arange(L, device=dev)
+    return _Layout(
+        L=L, step=max(1, BATCH_ELEMS // (L * P)),
+        px=(p % t).to(torch.float32), py=(p // t).to(torch.float32),
+        ox=((tiles % gx) * t).to(torch.float32),
+        oy=((tiles // gx) * t).to(torch.float32),
+        in_image=(((tiles % gx) * t)[:, None] + (p % t) < width)
+        & (((tiles // gx) * t)[:, None] + (p // t) < height))
 
-    color = torch.empty((T, 3, P), dtype=torch.float32, device=dev)
-    final_T = torch.empty((T, P), dtype=torch.float32, device=dev)
+
+def _gather(lay: _Layout, sl: slice, tile_starts, tile_counts, K: int):
+    """Sorted-slot index (B, L) of each tile's pairs and its valid mask."""
+    ar = torch.arange(lay.L, device=tile_starts.device)
+    idx = tile_starts[sl, None].to(torch.int64) + ar
+    valid = ar < tile_counts[sl, None].to(torch.int64)
+    return torch.where(valid & (idx < K), idx, K - 1), valid
+
+
+def _tile_local(rows, lay: _Layout, sl: slice):
+    """(B, L, 9) pair rows with means made tile-local."""
+    return torch.cat([(rows[..., 0] - lay.ox[sl, None])[..., None],
+                      (rows[..., 1] - lay.oy[sl, None])[..., None],
+                      rows[..., 2:]], dim=-1)
+
+
+def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
+                    height: int, cfg: RasterizerConfig,
+                    max_per_tile: int = 4096) -> Composited:
+    """pair_feat (K, 9) rows of the sorted slots with GLOBAL means; tile
+    ranges (T,). Differentiable w.r.t. pair_feat."""
+    dev = pair_feat.device
+    gx, gy = cfg.grid_size(width, height)
+    T, P = gx * gy, cfg.pixels_per_tile
+    lay = _layout(tile_counts, width, height, cfg, max_per_tile)
+    color, final_T = [], []
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
-    step = max(1, BATCH_ELEMS // (L * P))
-    for b0 in range(0, T, step):
-        sl = slice(b0, min(T, b0 + step))
-        idx = tile_starts[sl, None].to(torch.int64) + ar
-        valid = ar < counts[sl, None]
-        idx = torch.where(valid & (idx < K), idx, K - 1)
-        g = ids_sorted[idx].to(torch.int64).clamp(0, N - 1)
-        feat = feat9[g]                                    # (B, L, 9)
-        feat = torch.cat([(feat[..., 0] - ox[sl, None])[..., None],
-                          (feat[..., 1] - oy[sl, None])[..., None],
-                          feat[..., 2:]], dim=-1)
-        C, Tf, evaluated = _composite_tiles(feat, valid, px, py, cfg)
-        color[sl], final_T[sl] = C, Tf
-        n_eval += (evaluated & in_image[sl, None]).sum()
+    for b0 in range(0, T, lay.step):
+        sl = slice(b0, min(T, b0 + lay.step))
+        idx, valid = _gather(lay, sl, tile_starts, tile_counts,
+                             pair_feat.shape[0])
+        C, Tf, evaluated = _composite_tiles(
+            _tile_local(pair_feat[idx], lay, sl), valid, lay.px, lay.py, cfg)
+        color.append(C)
+        final_T.append(Tf)
+        n_eval += (evaluated & lay.in_image[sl, None]).sum()
 
-    color, final_T = assemble_image(color, final_T, gx, gy, width, height, t)
+    color, final_T = assemble_image(torch.cat(color), torch.cat(final_T), gx,
+                                    gy, width, height, cfg.tile)
     return Composited(color=color, final_T=final_T,
-                      tile_overflow=torch.any(counts > max_per_tile),
+                      tile_overflow=torch.any(tile_counts > max_per_tile),
                       n_evaluated=n_eval)
+
+
+def composite_backward_plain(pair_feat, tile_starts, tile_counts, dcolor,
+                             dfinal_T, width: int, height: int,
+                             cfg: RasterizerConfig,
+                             max_per_tile: int = 4096) -> torch.Tensor:
+    """Plain version of kernel K3: the gradient of composite_plain's
+    (color, final_T) w.r.t. pair_feat, for cotangents dcolor (3, H, W) and
+    dfinal_T (H, W). Returns (K, 9) per-pair gradients at SORTED positions
+    (zero for slots that are not composited). Recomputes each tile batch's
+    forward under autograd, so memory stays at one batch's intermediates."""
+    gx, gy = cfg.grid_size(width, height)
+    T = gx * gy
+    K = pair_feat.shape[0]
+    lay = _layout(tile_counts, width, height, cfg, max_per_tile)
+    dC, dT = split_image(dcolor, dfinal_T, gx, gy, cfg.tile)
+    dpairs = torch.zeros((K, 9), dtype=torch.float32,
+                         device=pair_feat.device)
+    for b0 in range(0, T, lay.step):
+        sl = slice(b0, min(T, b0 + lay.step))
+        idx, valid = _gather(lay, sl, tile_starts, tile_counts, K)
+        with torch.enable_grad():
+            rows = pair_feat[idx].detach().requires_grad_(True)
+            C, Tf, _ = _composite_tiles(_tile_local(rows, lay, sl), valid,
+                                        lay.px, lay.py, cfg)
+            (g,) = torch.autograd.grad((C, Tf), rows, (dC[sl], dT[sl]))
+        # Each sorted slot lies in exactly one tile: a plain scatter.
+        dpairs[idx[valid]] = g[valid]
+    return dpairs
 
 
 def assemble_image(color_tiles, final_T_tiles, gx: int, gy: int, width: int,
@@ -120,3 +201,15 @@ def assemble_image(color_tiles, final_T_tiles, gx: int, gy: int, width: int,
     f = final_T_tiles.reshape(gy, gx, tile, tile)
     f = f.permute(0, 2, 1, 3).reshape(gy * tile, gx * tile)
     return c[:, :height, :width].contiguous(), f[:height, :width].contiguous()
+
+
+def split_image(color, final_T, gx: int, gy: int, tile: int):
+    """Inverse of assemble_image: (3, H, W) + (H, W) -> (T, 3, tile*tile) +
+    (T, tile*tile), zero outside the image."""
+    H, W = final_T.shape
+    pad = (0, gx * tile - W, 0, gy * tile - H)
+    c = torch.nn.functional.pad(color, pad).reshape(3, gy, tile, gx, tile)
+    c = c.permute(1, 3, 0, 2, 4).reshape(gx * gy, 3, tile * tile)
+    f = torch.nn.functional.pad(final_T, pad).reshape(gy, tile, gx, tile)
+    f = f.permute(0, 2, 1, 3).reshape(gx * gy, tile * tile)
+    return c, f

@@ -5,8 +5,9 @@ gs2mesh_utils/renderer_utils.py): loads COLMAP poses + the trained GS
 point_cloud.ply, computes the stereo baseline (median radius for 360 scenes,
 x2 for DTU, or a least-squares sphere fit otherwise), optionally greedily
 orders the cameras, builds the left/right camera dicts, saves
-camera_data.json, and renders each pair to NNN/left.png + right.png on the
-model's device (CUDA kernels by default).
+camera_data.json, and renders each pair to NNN/left.png + right.png (by
+``core/png.py::write_png``) on the model's device (CUDA kernels by
+default).
 """
 
 from __future__ import annotations
@@ -14,8 +15,6 @@ from __future__ import annotations
 import copy
 import json
 import os
-import struct
-import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -25,6 +24,7 @@ from gs2mesh_torch import resolve_device
 from gs2mesh_torch.core import colmap_io
 from gs2mesh_torch.core import transforms as tf
 from gs2mesh_torch.core.camera import camera_from_euler
+from gs2mesh_torch.core.png import write_png
 from gs2mesh_torch.core.ply import read_points_colors
 
 
@@ -82,26 +82,6 @@ def compute_baseline(camera_locations: np.ndarray, args) -> float:
         radius = float(least_squares(
             residuals, np.array([x_m, y_m, z_m, 1.0])).x[3])
     return radius * (args.renderer_baseline_percentage / 100.0)
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG (zlib + struct, no image library)."""
-    h, w, c = img.shape
-    if img.dtype != np.uint8 or c != 3:
-        raise ValueError(f"expected (H, W, 3) uint8, got {img.dtype} "
-                         f"{img.shape}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
-                          axis=1)                # filter byte 0 per row
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + chunk(b"IEND", b""))
 
 
 class Renderer:

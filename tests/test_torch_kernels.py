@@ -1,5 +1,5 @@
-"""CUDA kernels K1 (emission) and K2 (compositing) against their plain
-PyTorch versions on the card. Marked ``cuda``; each test skips without a
+"""CUDA kernels K1 (emission), K2 (compositing), K3 (compositing backward)
+and K4 (per-gaussian sum) against their plain PyTorch versions on the card. Marked ``cuda``; each test skips without a
 CUDA device. This file imports neither JAX nor the test scenes (which do),
 so on a machine with a card and no JAX it runs on its own:
 
@@ -14,11 +14,16 @@ import torch
 
 from gs2mesh_torch.core.camera import make_camera
 from gs2mesh_torch.ops.rasterizer import RasterizerConfig
-from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+from gs2mesh_torch.ops.rasterizer.composite import (composite_backward_cuda,
+                                                    composite_cuda)
 from gs2mesh_torch.ops.rasterizer.emit import (build_feat9, emission_cuda,
-                                               emission_plain, sort_pairs)
+                                               emission_plain,
+                                               segment_sum_cuda,
+                                               segment_sum_plain, sort_pairs)
 from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
-from gs2mesh_torch.ops.rasterizer.tile_render import composite_plain
+from gs2mesh_torch.ops.rasterizer.tile_render import (composite_backward_plain,
+                                                      composite_plain,
+                                                      pair_rows)
 
 pytestmark = pytest.mark.cuda
 W, H = 200, 136                       # ragged last tile row and column
@@ -69,9 +74,82 @@ def test_composite_kernel_matches_plain(scene):
                                      prep.tiles_touched, W, H, cfg), gx * gy)
     a = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H, cfg)
     color, T = composite_cuda(*a)
-    ref = composite_plain(*a, max_per_tile=int(pairs.tile_counts.max()))
+    ref = composite_plain(pair_rows(feat9, pairs.ids), pairs.tile_starts,
+                          pairs.tile_counts, W, H, cfg,
+                          max_per_tile=int(pairs.tile_counts.max()))
     torch.cuda.synchronize()
     d = torch.cat([(color - ref.color).abs().flatten(),
                    (T - ref.final_T).abs().flatten()])
     assert float((d > 2e-5).float().mean()) <= 1e-4
     assert float(d.max()) <= 4e-3
+
+
+def test_backward_kernels_match_plain(scene):
+    """K3 per-pair gradients against the plain autograd (within 1e-4 of
+    each column's largest value plus 1e-3 relative: the kernel sums each
+    pair's pixels in another order), K4 against the plain sum, and both
+    bit-identical across two runs."""
+    feat9, prep, cfg = scene
+    gx, gy = cfg.grid_size(W, H)
+    pairs = sort_pairs(emission_cuda(feat9, prep.depths, prep.rect,
+                                     prep.tiles_touched, W, H, cfg), gx * gy)
+    a = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H, cfg)
+    color, T = composite_cuda(*a)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dC = torch.randn((3, H, W), generator=g, device="cuda")
+    dT = torch.randn((H, W), generator=g, device="cuda")
+    k3 = [composite_backward_cuda(pairs.ids, pairs.order, pairs.tile_starts,
+                                  pairs.tile_counts, feat9, color, T, dC, dT,
+                                  W, H, cfg) for _ in range(2)]
+    plain = torch.zeros_like(k3[0])
+    plain[pairs.order] = composite_backward_plain(
+        pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
+        dC, dT, W, H, cfg, max_per_tile=int(pairs.tile_counts.max()))
+    torch.cuda.synchronize()
+    assert torch.equal(k3[0], k3[1])
+    scale = plain.abs().amax(0)
+    assert float((((k3[0] - plain).abs() > 1e-3 * plain.abs() + 1e-4 * scale)
+                  .float().mean())) <= 1e-3
+    k4 = [segment_sum_cuda(k3[0], pairs.offsets, prep.tiles_touched)
+          for _ in range(2)]
+    ref = segment_sum_plain(k3[0], pairs.offsets, prep.tiles_touched)
+    torch.cuda.synchronize()
+    assert torch.equal(k4[0], k4[1])
+    torch.testing.assert_close(k4[0], ref, rtol=1e-5,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+def test_rasterize_grads_match_cpu(scene):
+    """The whole backward on the card (K3, K4, then autograd through
+    preprocess and the activations) against the CPU path on the same
+    inputs: >= 99.9% of each input's gradient values within atol 5e-5 /
+    rtol 5e-3 (PARITY.md:45); the rest are pixels where the kernels and the
+    plain compositor stop at a T < 1e-4 knife edge apart."""
+    from gs2mesh_torch.ops.rasterizer import rasterize
+
+    _, _, cfg = scene
+    rng = np.random.default_rng(1)
+    n = 3000
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    q = rng.normal(size=(n, 4))
+    arrays = [np.asarray(a, np.float32) for a in (
+        v, np.abs(rng.normal(0.05, 0.015, size=(n, 3))) + 1e-3,
+        q / np.linalg.norm(q, axis=1, keepdims=True),
+        rng.uniform(0.3, 0.95, n), rng.normal(scale=0.3, size=(n, 16, 3)))]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        inputs = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in arrays]
+        cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]),
+                          math.radians(60), math.radians(45), W, H,
+                          device=dev)
+        out = rasterize(*inputs, cam, 3, cfg=cfg,
+                        bg=torch.tensor([0.1, 0.2, 0.3], device=dev))
+        loss = torch.mean(out.image ** 2) + 0.1 * torch.mean(out.final_T)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, inputs)]
+    for name, g, ref in zip(("means3d", "scales", "rotations", "opacities",
+                             "shs"), grads["cuda"], grads["cpu"]):
+        assert ref.abs().max() > 0, name
+        ok = (g - ref).abs() <= 5e-5 + 5e-3 * ref.abs()
+        assert float(ok.float().mean()) >= 0.999, name
