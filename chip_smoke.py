@@ -26,9 +26,10 @@ Phases (any failure raises, and the script exits non-zero):
      opacity reset and 5 more; K1-K4 must launch once per taken step, with
      no overflow, a finite and falling loss, > 90% of the alive rows kept
      by the densify, and finite params and Adam moments;
-  7. one training step's stages (CUDA events), K3 and K4 at its shapes
-     beside their plain versions, and the device idle share of 3 steps;
-     all four kernels printed as one JSON "kernels" line;
+  7. 3 more steps of the trainer under torch.profiler: the device idle
+     share and each train_step range's device and host ms; then K3 and
+     K4 at the step's shapes beside their plain versions (K4 also beside
+     one index_add_); all four kernels printed as one JSON "kernels" line;
   8. last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
@@ -46,16 +47,19 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM FP32 outside the tensor cores
-# FP32 operations per (pair, pixel) evaluation in K2: 2 for dx/dy, 7 for the
-# conic power, 4 for expf (range reduction + polynomial), 1 for the opacity
-# product and 6 for the compositing update of an accepted pair.
-K2_OPS_PER_EVAL = 20
-# FP32 operations per (pair, pixel) evaluation in K3: K2's 14 for the
-# alpha replay, 2 for the T update, and for the gradient 5 for u, 2 for the
-# running sum, 5 for dalpha, 1 for dpower, 18 for the nine gradient terms
-# and 3 for the warp-tree and cross-warp sums (45 shuffle-adds per
-# (pair, warp) over 32 pixels, 9 adds per (pair, warp) over the block).
-K3_OPS_PER_EVAL = 50
+# FP32 operations per (pair, pixel) evaluation, in K2 and K3 alike: 2 for
+# dx/dy, 7 for the conic power, 4 for expf (range reduction + polynomial),
+# 1 for the opacity product and 1 for the 1/255 test. Only the evaluations
+# the plain compositor counts as accepted (composited) do more:
+OPS_PER_EVAL = 15
+# K2: the clamp, 1 - alpha, the T product, the T-stop test, w = alpha*T and
+# 3 multiply-adds into the colour.
+K2_OPS_PER_ACCEPTED = 11
+# K3: K2's first 5 (clamp, T update, T-stop test, w), 5 for u, 2 for the
+# running sum, 4 for dalpha, 1 for dpower, 23 for the nine gradient terms
+# and 9 adds of them into the pair's sums (the least a sum over the pair's
+# pixels needs, whatever the reduction tree).
+K3_OPS_PER_ACCEPTED = 49
 
 
 def check(cond, msg):
@@ -65,6 +69,13 @@ def check(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
+
+
+def compositor_ops(plain, ops_per_accepted):
+    """FP32 operations a compositor needs for this run's data, from the
+    plain compositor's evaluated and accepted (pair, pixel) counts."""
+    return (int(plain.n_evaluated) * OPS_PER_EVAL
+            + int(plain.n_accepted) * ops_per_accepted)
 
 
 def cuda_time_ms(fn, iters, warm=True):
@@ -200,8 +211,8 @@ def run_backward_kernels(pairs, feat9, tiles_touched, color, final_T, dC, dT,
     return dpairs, segment_sum_cuda(dpairs, pairs.offsets, tiles_touched)
 
 
-def run_backward_plain(pairs, feat9, tiles_touched, dC, dT, W, H, cfg):
-    from gs2mesh_torch.ops.rasterizer.emit import segment_sum_plain
+def run_backward_plain(pairs, feat9, dC, dT, W, H, cfg):
+    """The plain autograd's per-pair gradients (K, 9) at emission slots."""
     from gs2mesh_torch.ops.rasterizer.tile_render import (
         composite_backward_plain, pair_rows)
 
@@ -210,34 +221,49 @@ def run_backward_plain(pairs, feat9, tiles_touched, dC, dT, W, H, cfg):
     dpairs[pairs.order] = composite_backward_plain(
         pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
         dC, dT, W, H, cfg, int(pairs.tile_counts.max()))
-    return dpairs, segment_sum_plain(dpairs, pairs.offsets, tiles_touched)
+    return dpairs
 
 
-def compare_backward(k3, k4, plain3, plain4, what):
-    """K3 against the plain autograd: a value is within tolerance if it is
-    within 2e-3 relative plus 1e-4 of its column's largest magnitude (K3
-    sums each pair's 1024 pixels in another order than the plain bmm and
-    sums); >= 99.9% of values must be, the rest are T-stop knife edges
-    where the plain log-space T and the kernel's product decide apart. K4
-    against the plain float64 sum of the same K3 rows: within 1e-5
-    relative plus 1e-6 of the largest magnitude, every value."""
+def compare_backward(k3, k4, plain3, pairs, tiles_touched, what):
+    """K3 against the plain autograd on the live pair rows (nonzero in
+    either; every other row is zero in both). A value is within tolerance
+    if it is within 2e-3 relative plus 1e-4 of its column's largest
+    magnitude (K3 sums each pair's 1024 pixels in another order than the
+    plain bmm and sums). >= 99.9% of the live values must be, and none may
+    be more than 1e-3 of its column's largest magnitude apart: the rest can
+    only be 1/255 or T-stop knife edges, where the plain torch.exp and
+    log-space T decide a pixel apart from the kernel and move a pair's sum
+    by that pixel's share. K4 against the plain float64 sum of the same K3
+    rows: within 1e-5 relative plus 1e-6 of the largest value, every
+    value. The chained K3 + K4 against the plain sum of the plain rows is
+    printed beside them."""
+    from gs2mesh_torch.ops.rasterizer.emit import segment_sum_plain
+
+    live = plain3.ne(0).any(1) | k3.ne(0).any(1)
+    ref = plain3[live]
     scale = plain3.abs().amax(0)
-    gap = (k3 - plain3).abs()
-    ok = gap <= 2e-3 * plain3.abs() + 1e-4 * scale
-    share = float(ok.float().mean())
+    gap = (k3[live] - ref).abs()
+    share = float((gap <= 2e-3 * ref.abs() + 1e-4 * scale).float().mean())
     rel_gap = float((gap / scale.clamp_min(1e-30)).max())
     k3_err = float(gap.max())
-    log(f"{what}: K3 vs plain: {gap.numel()} values, {100 * share:.5f}% "
-        f"within tolerance, max abs err {k3_err:.3e} (largest gap / column "
-        f"max {rel_gap:.3e}); live pair rows "
-        f"{int(plain3.abs().amax(1).gt(0).sum())}")
+    log(f"{what}: K3 vs plain: {int(live.sum())} live pair rows of "
+        f"{live.numel()}, {gap.numel()} values, {100 * share:.5f}% within "
+        f"tolerance, max abs err {k3_err:.3e} (largest gap / column max "
+        f"{rel_gap:.3e})")
     check(share >= 0.999, f"{what}: K3 agrees on {share:.6f} < 0.999")
-    gap4 = (k4 - plain4).abs()
+    check(rel_gap <= 1e-3, f"{what}: K3 gap {rel_gap:.3e} of a column max")
+    sum4 = segment_sum_plain(k3, pairs.offsets, tiles_touched)
+    gap4 = (k4 - sum4).abs()
     k4_err = float(gap4.max())
-    lim = 1e-5 * plain4.abs() + 1e-6 * float(plain4.abs().max())
-    log(f"{what}: K4 vs plain: {gap4.numel()} values, max abs err "
-        f"{k4_err:.3e}, all within tolerance: {bool((gap4 <= lim).all())}")
-    check(bool((gap4 <= lim).all()), f"{what}: K4 disagrees")
+    ok4 = bool((gap4 <= 1e-5 * sum4.abs()
+                + 1e-6 * float(sum4.abs().max())).all())
+    log(f"{what}: K4 vs plain on the same K3 rows: {gap4.numel()} values, "
+        f"max abs err {k4_err:.3e}, all within tolerance: {ok4}")
+    check(ok4, f"{what}: K4 disagrees")
+    chained = segment_sum_plain(plain3, pairs.offsets, tiles_touched)
+    log(f"{what}: K3 + K4 vs the plain sum of the plain rows: max abs err "
+        f"{float((k4 - chained).abs().max()):.3e} (largest value "
+        f"{float(chained.abs().max()):.3e})")
     return k3_err, k4_err
 
 
@@ -251,15 +277,15 @@ def phase_backward_vs_plain(pairs, feat9, prep, color, final_T, W, H, cfg):
         k3a, k4a = run_backward_kernels(*args)
         k3b, k4b = run_backward_kernels(*args)
         torch.cuda.reset_peak_memory_stats()
-        plain3, plain4 = run_backward_plain(pairs, feat9, prep.tiles_touched,
-                                            dC, dT, W, H, cfg)
+        plain3 = run_backward_plain(pairs, feat9, dC, dT, W, H, cfg)
         torch.cuda.synchronize()
     log(f"20k/256x256: plain backward peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(torch.equal(k3a, k3b), "K3 bit-identical across two runs")
     check(torch.equal(k4a, k4b), "K4 bit-identical across two runs")
     log("20k/256x256: K3 and K4 bit-identical across two runs")
-    return compare_backward(k3a, k4a, plain3, plain4, "20k/256x256")
+    return compare_backward(k3a, k4a, plain3, pairs, prep.tiles_touched,
+                            "20k/256x256")
 
 
 def write_colmap_model(sparse, n_views, width, height, fx, points=None,
@@ -377,13 +403,13 @@ def backward_rows(train_t, launches):
              "gs2mesh_tpu/ops/rasterizer/pallas_kernels.py:271", "k3"),
             ("segment_sum", "gs2mesh_torch/csrc/segsum.cu",
              "gs2mesh_tpu/ops/rasterizer/emit.py:659", "k4")):
-        ms, plain_ms, err, nbytes, nops = train_t[key]
+        ms, plain_ms, library_ms, err, nbytes, nops = train_t[key]
         bms, by = bound(nbytes, nops)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[key.upper()], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by, "library_ms": None})
+                     "bound_by": by, "library_ms": library_ms})
     # K3 also stands for the compact form of the same TPU kernel body.
     rows[0]["also_replaces"] = \
         "gs2mesh_tpu/ops/rasterizer/pallas_kernels.py:704"
@@ -515,11 +541,49 @@ def phase_train(work):
     return trainer, float(np.median(plain)), launches
 
 
+def step_stages(prof, n):
+    """Each train_step range's host ms and device-busy ms per step, from a
+    profile of n taken steps. A kernel (or copy) counts toward the range in
+    which the operator that launched it started on the host clock; the
+    backward's operators run on autograd's device thread, inside the
+    waiting thread's backward range. Of the backward's device time, K3's
+    and K4's (by kernel name) are also given on their own."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    from gs2mesh_torch.train.trainer import STEP_STAGES
+
+    ranges = sorted((e.time_range.start, e.time_range.end,
+                     e.name.split(".", 1)[1]) for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name.startswith("train_step."))
+    starts = [a for a, _, _ in ranges]
+    host = dict.fromkeys(STEP_STAGES, 0.0)
+    dev = dict.fromkeys(STEP_STAGES + ("K3", "K4", "outside"), 0.0)
+    for a, b, stage in ranges:
+        host[stage] += (b - a) / n / 1e3
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        stage = ranges[i][2] if i >= 0 and e.time_range.start < ranges[i][1] \
+            else "outside"
+        for k in e.kernels:
+            dev[stage] += k.duration / n / 1e3
+            if stage == "backward" and "composite_backward_kernel" in k.name:
+                dev["K3"] += k.duration / n / 1e3
+            elif stage == "backward" and "segment_sum_kernel" in k.name:
+                dev["K4"] += k.duration / n / 1e3
+    return host, dev
+
+
 def phase_train_timings(trainer, step_wall_ms):
-    """One training step's stages (CUDA events, view 0), K3 and K4 at the
-    step's shapes beside their plain versions, and the device idle share
-    of three profiled steps, also against step_wall_ms, the unprofiled
-    median host wall of a step."""
+    """The trainer's own step split into its profiler ranges (device busy
+    and host ms per step over 3 profiled steps) with the device idle
+    share, also against step_wall_ms, the unprofiled median host wall of a
+    step; then K3 and K4 at the step's shapes (view 0) beside their plain
+    versions and, for K4, the one PyTorch call that computes the same sum."""
     from torch.profiler import ProfilerActivity, profile
 
     from gs2mesh_torch.ops.rasterizer.composite import (
@@ -534,94 +598,9 @@ def phase_train_timings(trainer, step_wall_ms):
         composite_backward_plain, composite_plain, pair_rows)
     from gs2mesh_torch.ops.ssim import gs_loss
     from gs2mesh_torch.models.gaussians import activations
-    from gs2mesh_torch.train.trainer import render_model
+    from gs2mesh_torch.train.trainer import STEP_STAGES
 
     tr = trainer
-    m, cam, cfg = tr.model, tr.cameras[0], tr.rcfg
-    W, H = cam.width, cam.height
-    target, bg = tr._image_dev(0), tr._bg()
-    leaves = m.params.tensors()
-
-    def stage_times():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        out = render_model(m.params, m.state.alive, cam, 3, bg, cfg)
-        ev[1].record()
-        loss = gs_loss(out.image, target)
-        ev[2].record()
-        grads = torch.autograd.grad(loss, leaves)
-        ev[3].record()
-        alive = m.state.alive
-        for leaf, g in zip(leaves, grads):
-            leaf.grad = torch.where(
-                alive.reshape((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
-        tr.optimizer.step()
-        ev[4].record()
-        torch.cuda.synchronize()
-        for leaf in leaves:
-            leaf.grad = None
-        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
-
-    stage_times()
-    runs = np.array([stage_times() for _ in range(5)])
-    fwd, loss_ms, bwd, adam = runs.mean(axis=0)
-
-    # The step's compositor inputs and its true image cotangent.
-    with torch.no_grad():
-        inp = activations(m.params, m.state.alive)
-        prep = preprocess(inp["means3d"], inp["scales"], inp["rotations"],
-                          inp["opacities"], inp["shs"], cam, 3, cfg)
-        feat9 = build_feat9(prep)
-        gx, gy = cfg.grid_size(W, H)
-        pairs = sort_pairs(emission_cuda(feat9, prep.depths, prep.rect,
-                                         prep.tiles_touched, W, H, cfg),
-                           gx * gy)
-        color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
-                                        pairs.tile_counts, feat9, W, H, cfg)
-    image = (color + final_T[None] * bg[:, None, None]).requires_grad_(True)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    loss = gs_loss(image, target)
-    t0.record()
-    (dC,) = torch.autograd.grad(loss, image)
-    t1.record()
-    torch.cuda.synchronize()
-    loss_bwd = t0.elapsed_time(t1)
-    dT = (dC * bg[:, None, None]).sum(0)
-    bargs = (pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
-             cfg)
-    with torch.no_grad():
-        k3, k4 = run_backward_kernels(*bargs)
-        plain3, plain4 = run_backward_plain(pairs, feat9, prep.tiles_touched,
-                                            dC, dT, W, H, cfg)
-        torch.cuda.synchronize()
-        k3_err, k4_err = compare_backward(k3, k4, plain3, plain4,
-                                          "300k/960x576 train step")
-        k3_ms = cuda_time_ms(lambda: composite_backward_cuda(
-            pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
-            feat9, color, final_T, dC, dT, W, H, cfg), 20)
-        k4_ms = cuda_time_ms(lambda: segment_sum_cuda(
-            k3, pairs.offsets, prep.tiles_touched), 50)
-        plain3_ms = cuda_time_ms(lambda: composite_backward_plain(
-            pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
-            dC, dT, W, H, cfg, int(pairs.tile_counts.max())), 1,
-            warm=False)
-        plain4_ms = cuda_time_ms(lambda: segment_sum_plain(
-            k3, pairs.offsets, prep.tiles_touched), 3)
-        n_eval = int(composite_plain(pair_rows(feat9, pairs.ids),
-                                     pairs.tile_starts, pairs.tile_counts, W,
-                                     H, cfg,
-                                     int(pairs.tile_counts.max())).n_evaluated)
-    preprocess_bwd = bwd - loss_bwd - k3_ms - k4_ms
-    log(f"train step stages at 300k/960x576 (CUDA events, mean of 5 steps, "
-        f"ms): forward {fwd:.4f}, loss {loss_ms:.4f}, backward {bwd:.4f} = "
-        f"[loss backward {loss_bwd:.4f}, K3 {k3_ms:.4f}, K4 "
-        f"{k4_ms:.4f}, autograd through preprocess and the "
-        f"activations {preprocess_bwd:.4f}], Adam {adam:.4f}; step total "
-        f"{fwd + loss_ms + bwd + adam:.4f}")
-    log(f"K3 / K4 standalone ms: K3 {k3_ms:.4f} (plain {plain3_ms:.1f}), K4 "
-        f"{k4_ms:.4f} (plain {plain4_ms:.1f})")
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -636,17 +615,85 @@ def phase_train_timings(trainer, step_wall_ms):
         log(f"device busy {busy_ms:.3f} ms/step against the unprofiled "
             f"median step wall {step_wall_ms:.3f} ms: idle share "
             f"{1 - busy_ms / step_wall_ms:.3f}")
+    host, dev = step_stages(prof, 3)
+    attributed = sum(dev[s] for s in STEP_STAGES) + dev["outside"]
+    if busy_ms is None or attributed == 0:
+        log("train step stages: no device time attributed (not measured)")
+    else:
+        log("train step stages over 3 profiled steps, device busy ms / host "
+            "ms per step: " + ", ".join(
+                f"{s} {dev[s]:.4f} / {host[s]:.4f}" for s in STEP_STAGES)
+            + f"; outside the ranges {dev['outside']:.4f} device ms; "
+            f"attributed {attributed:.4f} of {busy_ms:.4f} busy")
+        log(f"  backward device ms: K3 {dev['K3']:.4f}, K4 {dev['K4']:.4f}, "
+            f"loss backward and autograd through preprocess and the "
+            f"activations {dev['backward'] - dev['K3'] - dev['K4']:.4f}")
+
+    # The step's compositor inputs and its true image cotangent.
+    m, cam, cfg = tr.model, tr.cameras[0], tr.rcfg
+    W, H = cam.width, cam.height
+    target, bg = tr._image_dev(0), tr._bg()
+    with torch.no_grad():
+        inp = activations(m.params, m.state.alive)
+        prep = preprocess(inp["means3d"], inp["scales"], inp["rotations"],
+                          inp["opacities"], inp["shs"], cam, 3, cfg)
+        feat9 = build_feat9(prep)
+        gx, gy = cfg.grid_size(W, H)
+        em = emission_cuda(feat9, prep.depths, prep.rect, prep.tiles_touched,
+                           W, H, cfg)
+        pairs = sort_pairs(em, gx * gy)
+        color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
+                                        pairs.tile_counts, feat9, W, H, cfg)
+    image = (color + final_T[None] * bg[:, None, None]).requires_grad_(True)
+    loss = gs_loss(image, target)
+    (dC,) = torch.autograd.grad(loss, image)
+    dT = (dC * bg[:, None, None]).sum(0)
+    bargs = (pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
+             cfg)
+    with torch.no_grad():
+        k3, k4 = run_backward_kernels(*bargs)
+        plain3 = run_backward_plain(pairs, feat9, dC, dT, W, H, cfg)
+        torch.cuda.synchronize()
+        k3_err, k4_err = compare_backward(k3, k4, plain3, pairs,
+                                          prep.tiles_touched,
+                                          "300k/960x576 train step")
+        k3_ms = cuda_time_ms(lambda: composite_backward_cuda(
+            pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
+            feat9, color, final_T, dC, dT, W, H, cfg), 20)
+        k4_ms = cuda_time_ms(lambda: segment_sum_cuda(
+            k3, pairs.offsets, prep.tiles_touched), 50)
+        # One PyTorch call for K4's sum over the same num_pairs slots (each
+        # holds its gaussian's id; the slots past them hold none).
+        n = int(em.num_pairs)
+        ids, rows = em.ids[:n].to(torch.int64), k3[:n]
+        lib = torch.zeros_like(k4)
+        lib4_ms = cuda_time_ms(lambda: lib.index_add_(0, ids, rows), 50)
+        lib_err = float((torch.zeros_like(k4).index_add_(0, ids, rows)
+                         - k4).abs().max())
+        plain3_ms = cuda_time_ms(lambda: composite_backward_plain(
+            pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
+            dC, dT, W, H, cfg, int(pairs.tile_counts.max())), 1,
+            warm=False)
+        plain4_ms = cuda_time_ms(lambda: segment_sum_plain(
+            k3, pairs.offsets, prep.tiles_touched), 3)
+        plain = composite_plain(pair_rows(feat9, pairs.ids),
+                                pairs.tile_starts, pairs.tile_counts, W, H,
+                                cfg, int(pairs.tile_counts.max()))
+    log(f"K3 / K4 standalone ms: K3 {k3_ms:.4f} (plain {plain3_ms:.1f}), K4 "
+        f"{k4_ms:.4f} (plain {plain4_ms:.1f}, index_add_ {lib4_ms:.4f}, "
+        f"which differs from K4 by at most {lib_err:.3e})")
 
     n_live = int(pairs.tile_counts.sum())
-    N, K, P = feat9.shape[0], pairs.ids.shape[0], W * H
+    N, P = feat9.shape[0], W * H
+    k3_ops = compositor_ops(plain, K3_OPS_PER_ACCEPTED)
     k3_bytes = n_live * (4 + 8 + 36) + N * 36 + 8 * P * 4 + gx * gy * 8
     k4_bytes = int(pairs.num_pairs) * 36 + N * (8 + 4 + 36)
-    log(f"K3 work: {n_live} live pairs, {n_eval} (pair, pixel) evaluations, "
-        f"{n_eval * K3_OPS_PER_EVAL} FP32 ops, {k3_bytes} bytes; K4 bytes "
-        f"{k4_bytes} over {int(pairs.num_pairs)} slots (capacity {K})")
-    return dict(k3=(k3_ms, plain3_ms, k3_err, k3_bytes,
-                    n_eval * K3_OPS_PER_EVAL),
-                k4=(k4_ms, plain4_ms, k4_err, k4_bytes, 0))
+    log(f"K3 work: {n_live} live pairs, {int(plain.n_evaluated)} (pair, "
+        f"pixel) evaluations of which {int(plain.n_accepted)} accepted, "
+        f"{k3_ops} FP32 ops, {k3_bytes} bytes; K4 bytes {k4_bytes} over "
+        f"{int(pairs.num_pairs)} slots (capacity {pairs.ids.shape[0]})")
+    return dict(k3=(k3_ms, plain3_ms, None, k3_err, k3_bytes, k3_ops),
+                k4=(k4_ms, plain4_ms, lib4_ms, k4_err, k4_bytes, 0))
 
 
 def phase_timings(r, launches):
@@ -704,9 +751,10 @@ def phase_timings(r, launches):
     n_eval = int(plain.n_evaluated)
     k1_bytes = N * (36 + 4 + 16 + 4) + K * (8 + 4)
     k2_bytes = n_live * 4 + gx * gy * 8 + N * 36 + 4 * W * H * 4
-    k2_ops = n_eval * K2_OPS_PER_EVAL
+    k2_ops = compositor_ops(plain, K2_OPS_PER_ACCEPTED)
     log(f"K2 work: {n_live} live pairs, {n_eval} (pair, pixel) evaluations "
-        f"({n_eval / (W * H):.1f} per pixel), {k2_ops} FP32 ops, "
+        f"({n_eval / (W * H):.1f} per pixel), {int(plain.n_accepted)} "
+        f"accepted, {k2_ops} FP32 ops, "
         f"{k2_bytes} bytes; K1 bytes {k1_bytes}")
 
     rows = []

@@ -33,6 +33,7 @@ class Composited(NamedTuple):
     tile_overflow: torch.Tensor  # () bool: a tile had > max_per_tile pairs
     n_evaluated: torch.Tensor    # () int64 (pair, pixel) evaluations the
                                  # sequential order makes, over image pixels
+    n_accepted: torch.Tensor     # () int64 of those, the pairs composited
 
 
 class _ClampNoGate(torch.autograd.Function):
@@ -56,7 +57,8 @@ def pair_rows(feat9: torch.Tensor, ids_sorted: torch.Tensor) -> torch.Tensor:
 
 def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
     """feat (B, L, 9) tile-local pair rows, valid (B, L); px/py (P,).
-    Returns (C (B, 3, P), T (B, P), evaluated (B, L, P) bool)."""
+    Returns (C (B, 3, P), T (B, P), evaluated (B, L, P) bool, accepted
+    (B, L, P) bool)."""
     xy_x, xy_y = feat[..., 0, None], feat[..., 1, None]
     ca, cb, cc = feat[..., 2, None], feat[..., 3, None], feat[..., 4, None]
     op = feat[..., 5, None]
@@ -88,7 +90,7 @@ def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
     T_acc = torch.exp(cum_acc - log1m_acc)
     w = alpha_acc * T_acc                                  # (B, L, P)
     C = torch.bmm(rgb.transpose(1, 2), w)                  # (B, 3, P)
-    return C, torch.exp(cum_acc[:, -1]), evaluated
+    return C, torch.exp(cum_acc[:, -1]), evaluated, accepted
 
 
 class _Layout(NamedTuple):
@@ -147,21 +149,23 @@ def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
     lay = _layout(tile_counts, width, height, cfg, max_per_tile)
     color, final_T = [], []
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
     for b0 in range(0, T, lay.step):
         sl = slice(b0, min(T, b0 + lay.step))
         idx, valid = _gather(lay, sl, tile_starts, tile_counts,
                              pair_feat.shape[0])
-        C, Tf, evaluated = _composite_tiles(
+        C, Tf, evaluated, accepted = _composite_tiles(
             _tile_local(pair_feat[idx], lay, sl), valid, lay.px, lay.py, cfg)
         color.append(C)
         final_T.append(Tf)
         n_eval += (evaluated & lay.in_image[sl, None]).sum()
+        n_acc += (accepted & lay.in_image[sl, None]).sum()
 
     color, final_T = assemble_image(torch.cat(color), torch.cat(final_T), gx,
                                     gy, width, height, cfg.tile)
     return Composited(color=color, final_T=final_T,
                       tile_overflow=torch.any(tile_counts > max_per_tile),
-                      n_evaluated=n_eval)
+                      n_evaluated=n_eval, n_accepted=n_acc)
 
 
 def composite_backward_plain(pair_feat, tile_starts, tile_counts, dcolor,
@@ -185,7 +189,7 @@ def composite_backward_plain(pair_feat, tile_starts, tile_counts, dcolor,
         idx, valid = _gather(lay, sl, tile_starts, tile_counts, K)
         with torch.enable_grad():
             rows = pair_feat[idx].detach().requires_grad_(True)
-            C, Tf, _ = _composite_tiles(_tile_local(rows, lay, sl), valid,
+            C, Tf, _, _ = _composite_tiles(_tile_local(rows, lay, sl), valid,
                                         lay.px, lay.py, cfg)
             (g,) = torch.autograd.grad((C, Tf), rows, (dC[sl], dT[sl]))
         # Each sorted slot lies in exactly one tile: a plain scatter.

@@ -31,6 +31,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gs2mesh_torch import resolve_device
 from gs2mesh_torch.core.camera import Camera
@@ -45,6 +46,9 @@ from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
 from gs2mesh_torch.ops.ssim import gs_loss, psnr
 
 PAIR_CAPACITY_MAX = 1 << 30     # emission slots and ids are 32-bit
+# The train step's profiler ranges, "train_step.<stage>", in step order.
+STEP_STAGES = ("forward", "loss", "overflow_gate", "backward",
+               "densify_stats", "optimizer")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,41 +143,48 @@ def train_step(model: GaussianModel, optimizer: torch.optim.Optimizer,
                cfg: TrainConfig, rcfg: RasterizerConfig,
                active_sh_degree: int, max_per_tile: int = 4096) -> StepOutput:
     """One step on one view; updates model.params (in place), model.state
-    and the optimizer unless the render overflowed."""
+    and the optimizer unless the render overflowed. Each stage runs in a
+    profiler range "train_step.<stage>" (STEP_STAGES)."""
     params = model.params
     leaves = params.tensors()
-    offs = torch.zeros((model.capacity, 2), dtype=torch.float32,
-                       device=model.device, requires_grad=True)
-    out = render_model(params, model.state.alive, camera, active_sh_degree,
-                       bg, rcfg, screenspace_offset=offs,
-                       max_per_tile=max_per_tile)
-    loss = gs_loss(out.image, target, cfg.lambda_dssim)
-    overflow, tile_overflow = (bool(v) for v in
-                               torch.stack([out.overflow, out.tile_overflow]))
+    with record_function("train_step.forward"):
+        offs = torch.zeros((model.capacity, 2), dtype=torch.float32,
+                           device=model.device, requires_grad=True)
+        out = render_model(params, model.state.alive, camera,
+                           active_sh_degree, bg, rcfg,
+                           screenspace_offset=offs, max_per_tile=max_per_tile)
+    with record_function("train_step.loss"):
+        loss = gs_loss(out.image, target, cfg.lambda_dssim)
+    with record_function("train_step.overflow_gate"):
+        overflow, tile_overflow = (
+            bool(v) for v in torch.stack([out.overflow, out.tile_overflow]))
     if overflow or tile_overflow:
         # Gradients of a truncated render are never applied.
         return StepOutput(loss.detach(), out.radii, out.num_pairs, overflow,
                           tile_overflow, None)
-    *grads, ss_grad = torch.autograd.grad(loss, leaves + [offs],
-                                          allow_unused=True)
-    model.state = accumulate_densification_stats(
-        model.state, ss_grad, out.radii, camera.width, camera.height)
-    # Dead padded rows can get NaN gradients (d/dq of the quaternion
-    # normalization); zero them so dead rows and their moments stay at
-    # their fill values.
-    alive = model.state.alive
-    applied = {}
-    for f, leaf, g in zip(FIELDS, leaves, grads):
-        g = torch.zeros_like(leaf) if g is None else g
-        leaf.grad = torch.where(alive.reshape((-1,) + (1,) * (g.ndim - 1)),
-                                g, 0.0)
-        applied[f] = leaf.grad
-    # optax's scale_by_schedule reads the count before its increment.
-    optimizer.param_groups[0]["lr"] = xyz_lr(
-        cfg, model.spatial_lr_scale, optimizer_step_count(optimizer))
-    optimizer.step()
-    for leaf in leaves:
-        leaf.grad = None
+    with record_function("train_step.backward"):
+        *grads, ss_grad = torch.autograd.grad(loss, leaves + [offs],
+                                              allow_unused=True)
+    with record_function("train_step.densify_stats"):
+        model.state = accumulate_densification_stats(
+            model.state, ss_grad, out.radii, camera.width, camera.height)
+    with record_function("train_step.optimizer"):
+        # Dead padded rows can get NaN gradients (d/dq of the quaternion
+        # normalization); zero them so dead rows and their moments stay at
+        # their fill values.
+        alive = model.state.alive
+        applied = {}
+        for f, leaf, g in zip(FIELDS, leaves, grads):
+            g = torch.zeros_like(leaf) if g is None else g
+            leaf.grad = torch.where(
+                alive.reshape((-1,) + (1,) * (g.ndim - 1)), g, 0.0)
+            applied[f] = leaf.grad
+        # optax's scale_by_schedule reads the count before its increment.
+        optimizer.param_groups[0]["lr"] = xyz_lr(
+            cfg, model.spatial_lr_scale, optimizer_step_count(optimizer))
+        optimizer.step()
+        for leaf in leaves:
+            leaf.grad = None
     return StepOutput(loss.detach(), out.radii, out.num_pairs, False, False,
                       applied)
 

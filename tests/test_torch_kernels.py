@@ -85,9 +85,12 @@ def test_composite_kernel_matches_plain(scene):
 
 
 def test_backward_kernels_match_plain(scene):
-    """K3 per-pair gradients against the plain autograd (within 1e-4 of
-    each column's largest value plus 1e-3 relative: the kernel sums each
-    pair's pixels in another order), K4 against the plain sum, and both
+    """K3 per-pair gradients against the plain autograd on the live pair
+    rows (nonzero in either): >= 99.9% of values within 1e-4 of each
+    column's largest value plus 1e-3 relative (the kernel sums each pair's
+    pixels in another order) and none more than 1e-3 of the column's
+    largest value apart (a 1/255 or T-stop knife edge moves one pixel's
+    share); K4 against the plain sum of the same K3 rows; both
     bit-identical across two runs."""
     feat9, prep, cfg = scene
     gx, gy = cfg.grid_size(W, H)
@@ -107,9 +110,12 @@ def test_backward_kernels_match_plain(scene):
         dC, dT, W, H, cfg, max_per_tile=int(pairs.tile_counts.max()))
     torch.cuda.synchronize()
     assert torch.equal(k3[0], k3[1])
+    live = plain.ne(0).any(1) | k3[0].ne(0).any(1)
     scale = plain.abs().amax(0)
-    assert float((((k3[0] - plain).abs() > 1e-3 * plain.abs() + 1e-4 * scale)
-                  .float().mean())) <= 1e-3
+    gap = (k3[0][live] - plain[live]).abs()
+    assert float((gap > 1e-3 * plain[live].abs() + 1e-4 * scale)
+                 .float().mean()) <= 1e-3
+    assert float((gap / scale.clamp_min(1e-30)).max()) <= 1e-3
     k4 = [segment_sum_cuda(k3[0], pairs.offsets, prep.tiles_touched)
           for _ in range(2)]
     ref = segment_sum_plain(k3[0], pairs.offsets, prep.tiles_touched)

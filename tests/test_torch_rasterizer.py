@@ -168,3 +168,48 @@ def test_cpu_tensors_never_reach_kernels():
     with pytest.raises(ValueError, match="expected cuda"):
         emission_cuda(build_feat9(prep), prep.depths, prep.rect,
                       prep.tiles_touched, CAM.width, CAM.height, CFG)
+
+
+def test_plain_compositor_counts_match_sequential_loop():
+    """composite_plain's evaluated and accepted (pair, pixel) counts (the
+    work the card's kernel bounds are computed from) equal those of a
+    front-to-back loop that composites one pair at a time."""
+    from gs2mesh_torch.ops.rasterizer.tile_render import (composite_plain,
+                                                          pair_rows)
+
+    prep = preprocess(*torch_args(scene_np(120)), CAM, 0, CFG)
+    feat9 = build_feat9(prep)
+    W, H = CAM.width, CAM.height
+    pairs = sort_pairs(emission_plain(feat9, prep.depths, prep.rect,
+                                      prep.tiles_touched, W, H, CFG),
+                       NUM_TILES)
+    out = composite_plain(pair_rows(feat9, pairs.ids), pairs.tile_starts,
+                          pairs.tile_counts, W, H, CFG)
+    gx, _ = CFG.grid_size(W, H)
+    t = CFG.tile
+    py, px = torch.meshgrid(torch.arange(t, dtype=torch.float32),
+                            torch.arange(t, dtype=torch.float32),
+                            indexing="ij")
+    n_eval = n_acc = 0
+    for tile in range(NUM_TILES):
+        ox, oy = (tile % gx) * t, (tile // gx) * t
+        T = torch.ones((t, t))
+        live = (ox + px < W) & (oy + py < H)
+        s0 = int(pairs.tile_starts[tile])
+        for s in range(s0, s0 + int(pairs.tile_counts[tile])):
+            f = feat9[int(pairs.ids[s])]
+            dx = (f[0] - ox) - px
+            dy = (f[1] - oy) - py
+            power = (-0.5 * f[2]) * (dx * dx) + dy * ((-0.5 * f[4]) * dy
+                                                      - f[3] * dx)
+            a_raw = f[5] * torch.exp(power)
+            passes = a_raw >= CFG.alpha_min
+            test_T = T * (1.0 - torch.clamp_max(a_raw, CFG.alpha_clamp))
+            stop = passes & (test_T < CFG.transmittance_eps)
+            acc = live & passes & ~stop
+            n_eval += int(live.sum())
+            n_acc += int(acc.sum())
+            T = torch.where(acc, test_T, T)
+            live = live & ~stop
+    assert n_acc > 0 and n_eval > n_acc
+    assert (int(out.n_evaluated), int(out.n_accepted)) == (n_eval, n_acc)

@@ -393,6 +393,26 @@ def test_training_overfits_synthetic_scene():
     assert tr.model.num_alive() > 200
 
 
+def test_train_step_profiler_ranges():
+    """Each taken step runs its stages in the profiler ranges
+    "train_step.<stage>", and chip_smoke.py's per-stage split reads them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from gs2mesh_torch.train.trainer import STEP_STAGES
+
+    tr = make_trainer()
+    tr.train(1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.train(2)
+    names = [e.name for e in prof.events()]
+    for stage in STEP_STAGES:
+        assert names.count(f"train_step.{stage}") == 2, stage
+    host, dev = chip_smoke.step_stages(prof, 2)
+    assert all(host[s] > 0 for s in STEP_STAGES), host
+    assert not any(dev.values()), dev          # no device on the CPU
+
+
 def test_trainer_capacity_growth():
     """Mirror of test_model_train.py::test_trainer_capacity_growth: direct
     growth keeps alive rows and Adam moments and pads both; densify-driven
