@@ -12,12 +12,19 @@ Phases (any failure raises, and the script exits non-zero):
      and every larger difference <= 4e-3 (one 1/255 knife-edge or T-stop
      flip); K3 (compositing backward) and K4 (per-gaussian sum) against
      the plain autograd and the plain sum (tolerances at compare_backward),
-     each bit-identical across two runs;
+     each bit-identical across two runs, K4 also bit for bit against the
+     float32 slot-order sum; then K1-K4 again, the same checks, on a
+     60k-gaussian scene of splats a few pixels wide at 360x200 (ragged last
+     tile row and column), where K3's sub-box mask and its empty-pair
+     branches do the work;
   4. the main path at full width: a seeded 300k-gaussian SH-3 model written
      as a GS PLY, a 4-view COLMAP text model at 960x576, and the port's
      Renderer on cuda rendering the 4 stereo pairs to PNG; K1 and K2 must
      each launch once per render, with no pair overflow;
   5. K1 and K2 timed beside their plain versions at the main path's shapes;
+     K3 and K4 timed on that dense render too (2.9M live pairs; K4 beside
+     one index_add_), bit-identical across two runs, K4 against the plain
+     and the slot-order sums;
   6. the training path at full width: 8 target views of the 300k SH-3
      sphere rendered by the port at 960x576 and written as PNGs with a
      binary COLMAP model holding the 300k centres; load_colmap_scene ->
@@ -78,14 +85,20 @@ def compositor_ops(plain, ops_per_accepted):
             + int(plain.n_accepted) * ops_per_accepted)
 
 
-def cuda_time_ms(fn, iters, warm=True):
+def cuda_time_ms(fn, iters, warm=True, queued=False):
     """Mean device time of fn() over iters launches, after one warm-up
-    (skipped with warm=False, for plain versions already run once)."""
+    (skipped with warm=False, for plain versions already run once). With
+    queued=True (the kernels) the timed launches are queued behind a ~20 ms
+    matrix product, so a kernel that runs shorter than Python takes to
+    launch it is timed by the device, not by the host's enqueue rate."""
     if warm:
         fn()
+    blocker = torch.ones((8192, 8192), device="cuda") if queued else None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.mm(blocker, blocker)
     start.record()
     for _ in range(iters):
         fn()
@@ -94,13 +107,14 @@ def cuda_time_ms(fn, iters, warm=True):
     return start.elapsed_time(end) / iters
 
 
-def sphere_scene(n, seed, sh_degree=3):
+def sphere_scene(n, seed, sh_degree=3, scale=(0.04, 0.012)):
     """The bench sphere (__graft_entry__._scene) with small nonzero
-    higher-order SH; numpy arrays in GaussianParams layout."""
+    higher-order SH; numpy arrays in GaussianParams layout. scale is the
+    mean and spread of the splats' world-space sigmas."""
     rng = np.random.default_rng(seed)
     v = rng.normal(size=(n, 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
-    scales = np.abs(rng.normal(0.04, 0.012, size=(n, 3))) + 1e-3
+    scales = np.abs(rng.normal(*scale, size=(n, 3))) + 1e-3
     quat = rng.normal(size=(n, 4))
     quat /= np.linalg.norm(quat, axis=1, keepdims=True)
     opac = rng.uniform(0.3, 0.95, size=(n,))
@@ -152,7 +166,8 @@ def compare_emission(em_k, em_p, num_tiles, what):
     return sk, max_err
 
 
-def phase_kernels_vs_plain():
+def phase_kernels_vs_plain(what, n, W, H, scale, min_pairs_per_tile):
+    """K1 and K2 against their plain versions on a seeded sphere scene."""
     from gs2mesh_torch.core.camera import make_camera
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
     from gs2mesh_torch.ops.rasterizer import RasterizerConfig
@@ -161,14 +176,16 @@ def phase_kernels_vs_plain():
                                                    emission_cuda,
                                                    emission_plain)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
-    from gs2mesh_torch.ops.rasterizer.tile_render import (composite_plain,
-                                                          pair_rows)
+    from gs2mesh_torch.ops.rasterizer.tile_render import (
+        composite_plain, pair_box_mask_plain, pair_rows)
 
-    W = H = 256
     cfg = RasterizerConfig(pair_capacity=1 << 18)
     R, t = look_at((0.0, 0.0, -3.0))
-    cam = make_camera(R.T, t, math.radians(60), math.radians(60), W, H)
-    model = GaussianModel(params_from_numpy(sphere_scene(20_000, seed=1)), 3)
+    fov = math.radians(60)
+    cam = make_camera(R.T, t, fov, 2 * math.atan(H / W * math.tan(fov / 2)),
+                      W, H)
+    model = GaussianModel(params_from_numpy(
+        sphere_scene(n, seed=1, scale=scale)), 3)
     inp = model.raster_inputs()
     with torch.no_grad():
         prep = preprocess(inp["means3d"], inp["scales"], inp["rotations"],
@@ -177,20 +194,35 @@ def phase_kernels_vs_plain():
         args = (feat9, prep.depths, prep.rect, prep.tiles_touched, W, H, cfg)
         gx, gy = cfg.grid_size(W, H)
         pairs, _ = compare_emission(emission_cuda(*args),
-                                    emission_plain(*args), gx * gy,
-                                    "20k/256x256")
-        check(int(pairs.tile_counts.float().mean()) >= 100,
-              "phase 3 scene gives hundreds of pairs per tile")
+                                    emission_plain(*args), gx * gy, what)
+        check(not bool(pairs.overflow), f"{what}: pair overflow")
+        check(int(pairs.tile_counts.float().mean()) >= min_pairs_per_tile,
+              f"{what}: at least {min_pairs_per_tile} pairs per tile")
         pin = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H,
                cfg)
         color_k, T_k = composite_cuda(*pin)
-        plain = composite_plain(pair_rows(feat9, pairs.ids),
-                                pairs.tile_starts, pairs.tile_counts, W, H,
-                                cfg, int(pairs.tile_counts.max()))
+        rows = pair_rows(feat9, pairs.ids)
+        plain = composite_plain(
+            rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg,
+            int(pairs.tile_counts.max()), box_mask=pair_box_mask_plain(
+                rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg))
         torch.cuda.synchronize()
-        compare_composite(color_k, T_k, plain.color, plain.final_T,
-                          "20k/256x256")
-    return pairs, feat9, prep, color_k, T_k, W, H, cfg
+        compare_composite(color_k, T_k, plain.color, plain.final_T, what)
+    log_k3_evaluations(what, plain)
+    return what, pairs, feat9, prep, color_k, T_k, W, H, cfg
+
+
+def log_k3_evaluations(what, plain):
+    """The (pair, pixel) evaluations of the plain compositor (every pixel
+    of a tile, each pair until the pixel stops: what K3's bound counts)
+    beside those K3 makes (whole 8x4 sub-boxes: the ones a pair's mask keeps
+    and in which a pixel still evaluates it)."""
+    ev, acc, box = (int(plain.n_evaluated), int(plain.n_accepted),
+                    int(plain.n_box_evaluated))
+    log(f"{what}: per-pixel evaluations {ev}, accepted {acc} "
+        f"({100 * acc / max(ev, 1):.2f}%); K3 evaluates whole sub-boxes: "
+        f"{box} ({100 * box / max(ev, 1):.2f}% of the per-pixel count, "
+        f"{100 * acc / max(box, 1):.2f}% of them accepted)")
 
 
 def loss_cotangents(color, final_T):
@@ -206,9 +238,36 @@ def run_backward_kernels(pairs, feat9, tiles_touched, color, final_T, dC, dT,
     from gs2mesh_torch.ops.rasterizer.emit import segment_sum_cuda
 
     dpairs = composite_backward_cuda(pairs.ids, pairs.order, pairs.tile_starts,
-                                     pairs.tile_counts, feat9, color, final_T,
-                                     dC, dT, W, H, cfg)
+                                     pairs.tile_counts, pairs.num_pairs,
+                                     feat9, color, final_T, dC, dT, W, H, cfg)
     return dpairs, segment_sum_cuda(dpairs, pairs.offsets, tiles_touched)
+
+
+def emitted(pairs):
+    """Slots that hold a pair: K3 leaves the rows past them unwritten."""
+    return min(int(pairs.num_pairs), pairs.ids.shape[0])
+
+
+def check_k4_sums(k3, k4, pairs, tiles_touched, what):
+    """K4 against the plain float64 sum of the same K3 rows (within 1e-5
+    relative plus 1e-6 of the largest value, every value) and against the
+    float32 slot-order sum (bit for bit). Returns the max abs error."""
+    from gs2mesh_torch.ops.rasterizer.emit import (segment_sum_plain,
+                                                   segment_sum_slot_order)
+
+    sum4 = segment_sum_plain(k3, pairs.offsets, tiles_touched)
+    gap4 = (k4 - sum4).abs()
+    k4_err = float(gap4.max())
+    ok4 = bool((gap4 <= 1e-5 * sum4.abs()
+                + 1e-6 * float(sum4.abs().max())).all())
+    strict = torch.equal(k4, segment_sum_slot_order(k3, pairs.offsets,
+                                                    tiles_touched))
+    log(f"{what}: K4 vs plain on the same K3 rows: {gap4.numel()} values, "
+        f"max abs err {k4_err:.3e}, all within tolerance: {ok4}; equal to "
+        f"the float32 slot-order sum bit for bit: {strict}")
+    check(ok4, f"{what}: K4 disagrees")
+    check(strict, f"{what}: K4 differs from the slot-order sum")
+    return k4_err
 
 
 def run_backward_plain(pairs, feat9, dC, dT, W, H, cfg):
@@ -233,12 +292,16 @@ def compare_backward(k3, k4, plain3, pairs, tiles_touched, what):
     be more than 1e-3 of its column's largest magnitude apart: the rest can
     only be 1/255 or T-stop knife edges, where the plain torch.exp and
     log-space T decide a pixel apart from the kernel and move a pair's sum
-    by that pixel's share. K4 against the plain float64 sum of the same K3
-    rows: within 1e-5 relative plus 1e-6 of the largest value, every
-    value. The chained K3 + K4 against the plain sum of the plain rows is
-    printed beside them."""
+    by that pixel's share. Only the emitted slots are compared (the plain
+    rows past them must be zero; K3 leaves its own unwritten). K4 as
+    check_k4_sums says. The chained K3 + K4 against the plain sum of the
+    plain rows is printed beside them."""
     from gs2mesh_torch.ops.rasterizer.emit import segment_sum_plain
 
+    n_emitted = emitted(pairs)
+    check(not bool(plain3[n_emitted:].ne(0).any()),
+          f"{what}: plain rows past the emitted slots are zero")
+    k3_all, k3, plain3 = k3, k3[:n_emitted], plain3[:n_emitted]
     live = plain3.ne(0).any(1) | k3.ne(0).any(1)
     ref = plain3[live]
     scale = plain3.abs().amax(0)
@@ -252,14 +315,7 @@ def compare_backward(k3, k4, plain3, pairs, tiles_touched, what):
         f"{rel_gap:.3e})")
     check(share >= 0.999, f"{what}: K3 agrees on {share:.6f} < 0.999")
     check(rel_gap <= 1e-3, f"{what}: K3 gap {rel_gap:.3e} of a column max")
-    sum4 = segment_sum_plain(k3, pairs.offsets, tiles_touched)
-    gap4 = (k4 - sum4).abs()
-    k4_err = float(gap4.max())
-    ok4 = bool((gap4 <= 1e-5 * sum4.abs()
-                + 1e-6 * float(sum4.abs().max())).all())
-    log(f"{what}: K4 vs plain on the same K3 rows: {gap4.numel()} values, "
-        f"max abs err {k4_err:.3e}, all within tolerance: {ok4}")
-    check(ok4, f"{what}: K4 disagrees")
+    k4_err = check_k4_sums(k3_all, k4, pairs, tiles_touched, what)
     chained = segment_sum_plain(plain3, pairs.offsets, tiles_touched)
     log(f"{what}: K3 + K4 vs the plain sum of the plain rows: max abs err "
         f"{float((k4 - chained).abs().max()):.3e} (largest value "
@@ -267,8 +323,9 @@ def compare_backward(k3, k4, plain3, pairs, tiles_touched, what):
     return k3_err, k4_err
 
 
-def phase_backward_vs_plain(pairs, feat9, prep, color, final_T, W, H, cfg):
-    """K3 and K4 against their plain versions on phase 3's scene, and each
+def phase_backward_vs_plain(what, pairs, feat9, prep, color, final_T, W, H,
+                            cfg):
+    """K3 and K4 against their plain versions on a phase 3 scene, and each
     bit-identical across two runs."""
     dC, dT = loss_cotangents(color, final_T)
     args = (pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
@@ -279,13 +336,14 @@ def phase_backward_vs_plain(pairs, feat9, prep, color, final_T, W, H, cfg):
         torch.cuda.reset_peak_memory_stats()
         plain3 = run_backward_plain(pairs, feat9, dC, dT, W, H, cfg)
         torch.cuda.synchronize()
-    log(f"20k/256x256: plain backward peak device memory "
+    log(f"{what}: plain backward peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    check(torch.equal(k3a, k3b), "K3 bit-identical across two runs")
-    check(torch.equal(k4a, k4b), "K4 bit-identical across two runs")
-    log("20k/256x256: K3 and K4 bit-identical across two runs")
-    return compare_backward(k3a, k4a, plain3, pairs, prep.tiles_touched,
-                            "20k/256x256")
+    n = emitted(pairs)
+    check(torch.equal(k3a[:n], k3b[:n]),
+          f"{what}: K3 bit-identical across two runs")
+    check(torch.equal(k4a, k4b), f"{what}: K4 bit-identical across two runs")
+    log(f"{what}: K3 and K4 bit-identical across two runs")
+    return compare_backward(k3a, k4a, plain3, pairs, prep.tiles_touched, what)
 
 
 def write_colmap_model(sparse, n_views, width, height, fx, points=None,
@@ -396,7 +454,9 @@ def bound(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def backward_rows(train_t, launches):
+def backward_rows(train_t, dense_t, launches):
+    """K3's and K4's rows of the kernels line: the training step's numbers
+    under the common keys, the dense serving render's under dense_*."""
     rows = []
     for name, src, replaces, key in (
             ("composite_backward", "gs2mesh_torch/csrc/composite.cu",
@@ -405,15 +465,73 @@ def backward_rows(train_t, launches):
              "gs2mesh_tpu/ops/rasterizer/emit.py:659", "k4")):
         ms, plain_ms, library_ms, err, nbytes, nops = train_t[key]
         bms, by = bound(nbytes, nops)
+        d_ms, d_library_ms, d_bytes, d_ops = dense_t[key]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces,
                      "launches": launches[key.upper()], "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                     "bound_by": by, "library_ms": library_ms})
+                     "bound_by": by, "library_ms": library_ms,
+                     "dense_ms": d_ms,
+                     "dense_bound_ms": bound(d_bytes, d_ops)[0]})
+        if d_library_ms is not None:
+            rows[-1]["dense_library_ms"] = d_library_ms
     # K3 also stands for the compact form of the same TPU kernel body.
     rows[0]["also_replaces"] = \
         "gs2mesh_tpu/ops/rasterizer/pallas_kernels.py:704"
     return rows
+
+
+def time_backward_kernels(pairs, feat9, tiles_touched, color, final_T, dC, dT,
+                          W, H, cfg, what):
+    """K3 (with its fill) and K4 on these inputs: run twice (bit-identical),
+    then both timed, K4 beside the one PyTorch call that computes the same
+    sum; K3 also on the tile with the most pairs alone (a tile's pairs are
+    walked in order, so no launch is shorter than its heaviest tile).
+    Returns (k3 rows, k4 sums, K3 ms, K4 ms, index_add_ ms)."""
+    from gs2mesh_torch.ops.rasterizer.composite import composite_backward_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import segment_sum_cuda
+
+    bargs = (pairs, feat9, tiles_touched, color, final_T, dC, dT, W, H, cfg)
+    k3, k4 = run_backward_kernels(*bargs)
+    k3b, k4b = run_backward_kernels(*bargs)
+    torch.cuda.synchronize()
+    n = emitted(pairs)
+    check(torch.equal(k3[:n], k3b[:n]) and torch.equal(k4, k4b),
+          f"{what}: K3 and K4 bit-identical across two runs")
+    check(bool(torch.isfinite(k3[:n]).all()), f"{what}: K3 rows finite")
+    del k3b, k4b
+    k3_ms = cuda_time_ms(lambda: composite_backward_cuda(
+        pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
+        pairs.num_pairs, feat9, color, final_T, dC, dT, W, H, cfg), 20,
+        queued=True)
+    k4_ms = cuda_time_ms(lambda: segment_sum_cuda(
+        k3, pairs.offsets, tiles_touched), 50, queued=True)
+    heaviest = int(pairs.tile_counts.argmax())
+    alone = torch.zeros_like(pairs.tile_counts)
+    alone[heaviest] = pairs.tile_counts[heaviest]
+    alone_ms = cuda_time_ms(lambda: composite_backward_cuda(
+        pairs.ids, pairs.order, pairs.tile_starts, alone, pairs.num_pairs,
+        feat9, color, final_T, dC, dT, W, H, cfg), 10, queued=True)
+    counts = pairs.tile_counts.float()
+    log(f"{what}: pairs per tile mean {float(counts.mean()):.0f}, max "
+        f"{int(counts.max())}; K3 on that heaviest tile alone "
+        f"{alone_ms:.4f} ms of {k3_ms:.4f} ms for all "
+        f"{int((counts > 0).sum())} tiles with pairs")
+    # One PyTorch call for K4's sum over the emitted slots: slot s adds into
+    # the row of the gaussian that owns it.
+    owner = torch.repeat_interleave(
+        torch.arange(tiles_touched.shape[0], device=k3.device),
+        tiles_touched.to(torch.int64))[:n]
+    rows = k3[:n]
+    lib = torch.zeros_like(k4)
+    lib_ms = cuda_time_ms(lambda: lib.index_add_(0, owner, rows), 50,
+                          queued=True)
+    lib_err = float((torch.zeros_like(k4).index_add_(0, owner, rows)
+                     - k4).abs().max())
+    log(f"{what}: K3 {k3_ms:.4f} ms (fill included), K4 {k4_ms:.4f} ms, "
+        f"index_add_ {lib_ms:.4f} ms (differs from K4 by at most "
+        f"{lib_err:.3e})")
+    return k3, k4, k3_ms, k4_ms, lib_ms
 
 
 def kernel_counts():
@@ -547,7 +665,8 @@ def step_stages(prof, n):
     which the operator that launched it started on the host clock; the
     backward's operators run on autograd's device thread, inside the
     waiting thread's backward range. Of the backward's device time, K3's
-    and K4's (by kernel name) are also given on their own."""
+    (its fill kernel included) and K4's (by kernel name) are also given on
+    their own."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -571,7 +690,7 @@ def step_stages(prof, n):
             else "outside"
         for k in e.kernels:
             dev[stage] += k.duration / n / 1e3
-            if stage == "backward" and "composite_backward_kernel" in k.name:
+            if stage == "backward" and "composite_backward" in k.name:
                 dev["K3"] += k.duration / n / 1e3
             elif stage == "backward" and "segment_sum_kernel" in k.name:
                 dev["K4"] += k.duration / n / 1e3
@@ -586,16 +705,15 @@ def phase_train_timings(trainer, step_wall_ms):
     versions and, for K4, the one PyTorch call that computes the same sum."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gs2mesh_torch.ops.rasterizer.composite import (
-        composite_backward_cuda, composite_cuda)
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
     from gs2mesh_torch.ops.rasterizer.emit import (build_feat9,
                                                    emission_cuda,
-                                                   segment_sum_cuda,
                                                    segment_sum_plain,
                                                    sort_pairs)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
     from gs2mesh_torch.ops.rasterizer.tile_render import (
-        composite_backward_plain, composite_plain, pair_rows)
+        composite_backward_plain, composite_plain, pair_box_mask_plain,
+        pair_rows)
     from gs2mesh_torch.ops.ssim import gs_loss
     from gs2mesh_torch.models.gaussians import activations
     from gs2mesh_torch.train.trainer import STEP_STAGES
@@ -648,40 +766,30 @@ def phase_train_timings(trainer, step_wall_ms):
     loss = gs_loss(image, target)
     (dC,) = torch.autograd.grad(loss, image)
     dT = (dC * bg[:, None, None]).sum(0)
-    bargs = (pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
-             cfg)
+    what = "300k/960x576 train step"
     with torch.no_grad():
-        k3, k4 = run_backward_kernels(*bargs)
+        k3, k4, k3_ms, k4_ms, lib4_ms = time_backward_kernels(
+            pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
+            cfg, what)
         plain3 = run_backward_plain(pairs, feat9, dC, dT, W, H, cfg)
         torch.cuda.synchronize()
         k3_err, k4_err = compare_backward(k3, k4, plain3, pairs,
-                                          prep.tiles_touched,
-                                          "300k/960x576 train step")
-        k3_ms = cuda_time_ms(lambda: composite_backward_cuda(
-            pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
-            feat9, color, final_T, dC, dT, W, H, cfg), 20)
-        k4_ms = cuda_time_ms(lambda: segment_sum_cuda(
-            k3, pairs.offsets, prep.tiles_touched), 50)
-        # One PyTorch call for K4's sum over the same num_pairs slots (each
-        # holds its gaussian's id; the slots past them hold none).
-        n = int(em.num_pairs)
-        ids, rows = em.ids[:n].to(torch.int64), k3[:n]
-        lib = torch.zeros_like(k4)
-        lib4_ms = cuda_time_ms(lambda: lib.index_add_(0, ids, rows), 50)
-        lib_err = float((torch.zeros_like(k4).index_add_(0, ids, rows)
-                         - k4).abs().max())
+                                          prep.tiles_touched, what)
+        del plain3
+        rows = pair_rows(feat9, pairs.ids)
+        mpt = int(pairs.tile_counts.max())
         plain3_ms = cuda_time_ms(lambda: composite_backward_plain(
-            pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
-            dC, dT, W, H, cfg, int(pairs.tile_counts.max())), 1,
-            warm=False)
+            rows, pairs.tile_starts, pairs.tile_counts, dC, dT, W, H, cfg,
+            mpt), 1, warm=False)
         plain4_ms = cuda_time_ms(lambda: segment_sum_plain(
             k3, pairs.offsets, prep.tiles_touched), 3)
-        plain = composite_plain(pair_rows(feat9, pairs.ids),
-                                pairs.tile_starts, pairs.tile_counts, W, H,
-                                cfg, int(pairs.tile_counts.max()))
+        plain = composite_plain(
+            rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg, mpt,
+            box_mask=pair_box_mask_plain(rows, pairs.tile_starts,
+                                         pairs.tile_counts, W, H, cfg))
     log(f"K3 / K4 standalone ms: K3 {k3_ms:.4f} (plain {plain3_ms:.1f}), K4 "
-        f"{k4_ms:.4f} (plain {plain4_ms:.1f}, index_add_ {lib4_ms:.4f}, "
-        f"which differs from K4 by at most {lib_err:.3e})")
+        f"{k4_ms:.4f} (plain {plain4_ms:.1f}, index_add_ {lib4_ms:.4f})")
+    log_k3_evaluations(what, plain)
 
     n_live = int(pairs.tile_counts.sum())
     N, P = feat9.shape[0], W * H
@@ -698,7 +806,10 @@ def phase_train_timings(trainer, step_wall_ms):
 
 def phase_timings(r, launches):
     """K1 and K2 at the main path's shapes (view 0, left), each beside its
-    plain version on the same inputs."""
+    plain version on the same inputs; then K3 and K4 on that render (the
+    dense regime: a trained model's splats), held to reruns and K4 to its
+    sums, with no plain backward at this density. Returns K1's and K2's
+    rows of the kernels line and K3's and K4's dense numbers."""
     from gs2mesh_torch.core.camera import camera_from_euler
     from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
     from gs2mesh_torch.ops.rasterizer.emit import (build_feat9,
@@ -706,8 +817,8 @@ def phase_timings(r, launches):
                                                    emission_plain,
                                                    sort_pairs)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
-    from gs2mesh_torch.ops.rasterizer.tile_render import (composite_plain,
-                                                          pair_rows)
+    from gs2mesh_torch.ops.rasterizer.tile_render import (
+        composite_plain, pair_box_mask_plain, pair_rows)
 
     c = r.cameras[0]["left"]
     W, H = c["width"], c["height"]
@@ -733,19 +844,27 @@ def phase_timings(r, launches):
         mpt = int(pairs.tile_counts.max())
         pargs = (pair_rows(feat9, pairs.ids), pairs.tile_starts,
                  pairs.tile_counts, W, H, cfg, mpt)
-        plain = composite_plain(*pargs)
+        plain = composite_plain(*pargs, box_mask=pair_box_mask_plain(
+            pargs[0], pairs.tile_starts, pairs.tile_counts, W, H, cfg))
         k2_err = compare_composite(color_k, T_k, plain.color, plain.final_T,
                                    "300k/960x576")
 
         t = dict(
             preprocess=cuda_time_ms(run_preprocess, 20),
-            k1=cuda_time_ms(lambda: emission_cuda(*eargs), 50),
+            k1=cuda_time_ms(lambda: emission_cuda(*eargs), 50, queued=True),
             k1_plain=cuda_time_ms(lambda: emission_plain(*eargs), 5),
             sort=cuda_time_ms(lambda: sort_pairs(em, gx * gy), 20),
-            k2=cuda_time_ms(lambda: composite_cuda(*cargs), 50),
+            k2=cuda_time_ms(lambda: composite_cuda(*cargs), 50, queued=True),
             k2_plain=cuda_time_ms(lambda: composite_plain(*pargs), 2))
+        what = "300k/960x576 dense render"
+        k3, k4, k3_ms, k4_ms, lib4_ms = time_backward_kernels(
+            pairs, feat9, prep.tiles_touched, color_k, T_k,
+            *loss_cotangents(color_k, T_k), W, H, cfg, what)
+        check_k4_sums(k3, k4, pairs, prep.tiles_touched, what)
+        del k3, k4
     log("device ms per stage at 300k/960x576 (CUDA events): "
         + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+    log_k3_evaluations(what, plain)
 
     n_live = int(pairs.tile_counts.sum())
     n_eval = int(plain.n_evaluated)
@@ -772,7 +891,14 @@ def phase_timings(r, launches):
                      "max_abs_err": err, "ms": t[short],
                      "plain_ms": t[short + "_plain"], "bound_ms": bms,
                      "bound_by": by, "library_ms": None})
-    return rows
+    dense = dict(
+        k3=(k3_ms, None, n_live * (4 + 8 + 36) + N * 36 + 8 * W * H * 4
+            + gx * gy * 8, compositor_ops(plain, K3_OPS_PER_ACCEPTED)),
+        k4=(k4_ms, lib4_ms, int(pairs.num_pairs) * 36 + N * (8 + 4 + 36), 0))
+    for key, (ms, _, nb, nops) in dense.items():
+        log(f"{what}: {key.upper()} {ms:.4f} ms against a bound of "
+            f"{bound(nb, nops)[0]:.4f} ms ({bound(nb, nops)[1]})")
+    return rows, dense
 
 
 def report_profile(prof, wall_us, n, unit):
@@ -840,19 +966,24 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, out in sorted(_build.build_log.items()):
         log(f"--- nvcc {name}.cu ---\n{out.strip()}")
+    from gs2mesh_torch.ops.rasterizer.composite import backward_blocks_per_sm
+    log(f"K3 blocks per SM (occupancy API): {backward_blocks_per_sm()}")
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "smoke_out")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     t_phase = time.perf_counter()
-    phase_backward_vs_plain(*phase_kernels_vs_plain())
+    phase_backward_vs_plain(*phase_kernels_vs_plain(
+        "20k/256x256", 20_000, 256, 256, (0.04, 0.012), 100))
+    phase_backward_vs_plain(*phase_kernels_vs_plain(
+        "60k narrow/360x200", 60_000, 360, 200, (0.006, 0.002), 10))
     log(f"phase kernels-vs-plain: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     r, renders, launches = phase_main_path(work)
     log(f"phase main path: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    rows = phase_timings(r, launches)
+    rows, dense = phase_timings(r, launches)
     phase_profile(r)
     del r
     log(f"phase timings + profile: {time.perf_counter() - t_phase:.1f} s")
@@ -860,7 +991,7 @@ def main():
     trainer, step_wall_ms, train_launches = phase_train(work)
     log(f"phase train: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    rows += backward_rows(phase_train_timings(trainer, step_wall_ms),
+    rows += backward_rows(phase_train_timings(trainer, step_wall_ms), dense,
                           train_launches)
     for row, key in zip(rows, ("K1", "K2")):
         row["launches_train"] = train_launches[key]

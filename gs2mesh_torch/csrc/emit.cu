@@ -17,46 +17,16 @@
 // consecutive slots, so a warp's stores land on a handful of contiguous runs.
 // Load balance follows tiles_touched, which is a few tiles for most splats.
 //
-// Numerics: the cull must decide exactly as the reference does, so every
-// float op of the cull is a separately rounded __f*_rn intrinsic in the
-// reference's operation order (the build also passes -fmad=false) and expf is
-// the full-precision one.
+// Numerics: the cull must decide exactly as the reference does; its box test
+// lives in cull.cuh (shared with K3), written in separately rounded __f*_rn
+// intrinsics in the reference's operation order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cull.cuh"
+
 namespace {
-
-// 0.98 / 255 rounded once from double to float, as the reference does.
-constexpr float kAliveMin = (float)(0.98 / 255.0);
-
-// 0.5 * (ca*dx*dx + cc*dy*dy) + cb*dx*dy
-__device__ __forceinline__ float qval(float ca, float cb, float cc, float dx,
-                                      float dy) {
-  const float a = __fmul_rn(__fmul_rn(ca, dx), dx);
-  const float c = __fmul_rn(__fmul_rn(cc, dy), dy);
-  const float b = __fmul_rn(__fmul_rn(cb, dx), dy);
-  return __fadd_rn(__fmul_rn(0.5f, __fadd_rn(a, c)), b);
-}
-
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// Minimum of the conic quadratic over dy in [y_lo, y_hi] at fixed dx.
-__device__ __forceinline__ float edge_x(float ca, float cb, float cc, float dx,
-                                        float y_lo, float y_hi) {
-  const float dy =
-      clip(__fdiv_rn(__fmul_rn(-cb, dx), fmaxf(cc, 1e-12f)), y_lo, y_hi);
-  return qval(ca, cb, cc, dx, dy);
-}
-
-__device__ __forceinline__ float edge_y(float ca, float cb, float cc, float dy,
-                                        float x_lo, float x_hi) {
-  const float dx =
-      clip(__fdiv_rn(__fmul_rn(-cb, dy), fmaxf(ca, 1e-12f)), x_lo, x_hi);
-  return qval(ca, cb, cc, dx, dy);
-}
 
 __global__ void __launch_bounds__(256) emit_pairs_kernel(
     const int64_t* __restrict__ offsets, const int32_t* __restrict__ tiles,
@@ -98,16 +68,8 @@ __global__ void __launch_bounds__(256) emit_pairs_kernel(
     const float x_hi = __fadd_rn(x_lo, tf - 1.0f);
     const float y_lo = __fsub_rn(__fmul_rn((float)ty, tf), my);
     const float y_hi = __fadd_rn(y_lo, tf - 1.0f);
-    const bool inside =
-        (x_lo <= 0.0f) && (0.0f <= x_hi) && (y_lo <= 0.0f) && (0.0f <= y_hi);
-    float qmin = 0.0f;
-    if (!inside) {
-      qmin = fminf(fminf(edge_x(ca, cb, cc, x_lo, y_lo, y_hi),
-                         edge_x(ca, cb, cc, x_hi, y_lo, y_hi)),
-                   fminf(edge_y(ca, cb, cc, y_lo, x_lo, x_hi),
-                         edge_y(ca, cb, cc, y_hi, x_lo, x_hi)));
-    }
-    const bool alive = __fmul_rn(op, expf(-qmin)) >= kAliveMin;
+    const bool alive =
+        gs_cull::box_alive(ca, cb, cc, op, x_lo, x_hi, y_lo, y_hi);
     const int64_t tile_id = alive ? (int64_t)ty * gx + tx : (int64_t)num_tiles;
     keys[off + local] = (tile_id << shift) | dbits;
     ids[off + local] = g;

@@ -6,8 +6,9 @@
 pre-background color (3, H, W) and final_T (H, W). On CUDA tensors its
 forward launches K2 (``composite_cuda``) and its backward launches K3
 (``composite_backward_cuda``, per-pair gradients written at their emission
-slots) and K4 (``segment_sum_cuda``, each gaussian's contiguous slot
-segment summed). On CPU tensors it runs the plain versions
+slots; a pair is evaluated only in the 8x4 sub-boxes of its tile where it
+can reach the alpha cut) and K4 (``segment_sum_cuda``, each gaussian's
+contiguous slot segment summed). On CPU tensors it runs the plain versions
 (``tile_render.composite_plain``, ``composite_backward_plain`` and
 ``emit.segment_sum_plain``). K2 streams every pair of every tile (no
 per-tile cap, so it never sets ``tile_overflow``).
@@ -41,10 +42,21 @@ def _k2():
 @functools.lru_cache(maxsize=None)
 def _k3():
     fn = _build.library("composite").gs_composite_backward
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
+
+
+def backward_blocks_per_sm() -> int:
+    """Blocks of K3 that fit on one SM of the current card (occupancy API)."""
+    fn = _build.library("composite").gs_composite_backward_blocks_per_sm
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    blocks = fn()
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
+    return blocks
 
 
 def _check_tiles(ids_sorted, tile_starts, tile_counts, feat9, width, height,
@@ -84,27 +96,34 @@ composite_cuda.launches = 0
 
 
 def composite_backward_cuda(ids_sorted, order, tile_starts, tile_counts,
-                            feat9, color, final_T, dcolor, dfinal_T,
-                            width: int, height: int, cfg: RasterizerConfig):
+                            num_pairs, feat9, color, final_T, dcolor,
+                            dfinal_T, width: int, height: int,
+                            cfg: RasterizerConfig):
     """Kernel K3: per-pair gradients (K, 9) in feat9 column order, each at
-    its EMISSION slot (zero for pairs that are culled or never reached).
-    color / final_T are K2's outputs; dcolor / dfinal_T their cotangents."""
+    its EMISSION slot. Of the first min(num_pairs, K) rows (num_pairs the ()
+    int64 emission count, read on the device) those of pairs that are
+    culled, never reached or accepted at no pixel are zero; the rows past
+    them belong to no gaussian and are left unwritten. color / final_T are
+    K2's outputs; dcolor / dfinal_T their cotangents."""
     K = ids_sorted.shape[0]
     img, hw = (3, height, width), (height, width)
     dcolor, dfinal_T = dcolor.contiguous(), dfinal_T.contiguous()
     gx, gy = _check_tiles(
         ids_sorted, tile_starts, tile_counts, feat9, width, height, cfg,
-        order=(order, torch.int64, (K,)), color=(color, torch.float32, img),
+        order=(order, torch.int64, (K,)),
+        num_pairs=(num_pairs, torch.int64, ()),
+        color=(color, torch.float32, img),
         final_T=(final_T, torch.float32, hw),
         dcolor=(dcolor, torch.float32, img),
         dfinal_T=(dfinal_T, torch.float32, hw))
     dev = feat9.device
-    dpairs = torch.zeros((K, 9), dtype=torch.float32, device=dev)
+    dpairs = torch.empty((K, 9), dtype=torch.float32, device=dev)
     err = _k3()(ids_sorted.data_ptr(), order.data_ptr(),
                 tile_starts.data_ptr(), tile_counts.data_ptr(),
-                feat9.data_ptr(), color.data_ptr(), final_T.data_ptr(),
-                dcolor.data_ptr(), dfinal_T.data_ptr(), width, height, gx, gy,
-                cfg.alpha_min, cfg.alpha_clamp, cfg.transmittance_eps,
+                num_pairs.data_ptr(), feat9.data_ptr(), color.data_ptr(),
+                final_T.data_ptr(), dcolor.data_ptr(), dfinal_T.data_ptr(),
+                width, height, gx, gy, K, cfg.alpha_min, cfg.alpha_clamp,
+                cfg.transmittance_eps,
                 dpairs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"compositing backward kernel launch failed: CUDA "
@@ -122,7 +141,7 @@ class CompositeFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feat9, ids_sorted, order, tile_starts, tile_counts,
-                offsets, tiles_touched, width: int, height: int,
+                num_pairs, offsets, tiles_touched, width: int, height: int,
                 cfg: RasterizerConfig, max_per_tile: int):
         if feat9.is_cuda:
             color, final_T = composite_cuda(ids_sorted, tile_starts,
@@ -137,21 +156,21 @@ class CompositeFunction(torch.autograd.Function):
         else:
             raise ValueError(f"unsupported device {feat9.device}")
         ctx.save_for_backward(feat9, ids_sorted, order, tile_starts,
-                              tile_counts, offsets, tiles_touched, color,
-                              final_T)
+                              tile_counts, num_pairs, offsets, tiles_touched,
+                              color, final_T)
         ctx.args = (width, height, cfg, max_per_tile)
         ctx.mark_non_differentiable(tile_overflow)
         return color, final_T, tile_overflow
 
     @staticmethod
     def backward(ctx, dcolor, dfinal_T, _):
-        (feat9, ids_sorted, order, tile_starts, tile_counts, offsets,
-         tiles_touched, color, final_T) = ctx.saved_tensors
+        (feat9, ids_sorted, order, tile_starts, tile_counts, num_pairs,
+         offsets, tiles_touched, color, final_T) = ctx.saved_tensors
         width, height, cfg, max_per_tile = ctx.args
         if feat9.is_cuda:
             dpairs = composite_backward_cuda(
-                ids_sorted, order, tile_starts, tile_counts, feat9, color,
-                final_T, dcolor, dfinal_T, width, height, cfg)
+                ids_sorted, order, tile_starts, tile_counts, num_pairs, feat9,
+                color, final_T, dcolor, dfinal_T, width, height, cfg)
         else:
             dsorted = composite_backward_plain(
                 pair_rows(feat9, ids_sorted), tile_starts, tile_counts,
@@ -159,7 +178,7 @@ class CompositeFunction(torch.autograd.Function):
             dpairs = torch.empty_like(dsorted)
             dpairs[order] = dsorted
         dfeat9 = segment_sum(dpairs, offsets, tiles_touched)
-        return (dfeat9,) + (None,) * 10
+        return (dfeat9,) + (None,) * 11
 
 
 def composite(feat9, pairs: SortedPairs, tiles_touched, width: int,
@@ -170,4 +189,5 @@ def composite(feat9, pairs: SortedPairs, tiles_touched, width: int,
     tile_overflow ())."""
     return CompositeFunction.apply(
         feat9, pairs.ids, pairs.order, pairs.tile_starts, pairs.tile_counts,
-        pairs.offsets, tiles_touched, width, height, cfg, max_per_tile)
+        pairs.num_pairs, pairs.offsets, tiles_touched, width, height, cfg,
+        max_per_tile)

@@ -19,7 +19,8 @@ class RasterizerConfig:
     """
 
     tile: int = 32                  # pixel tile edge; the CUDA compositor
-                                    # runs one 1024-thread block per tile
+                                    # runs one block per tile (K2 1024
+                                    # threads, K3 256)
     chunk: int = 128                # pairs staged in shared memory per
                                     # batch by the CUDA compositor
     pair_capacity: int = 1 << 20    # max (tile, gaussian) pairs per frame

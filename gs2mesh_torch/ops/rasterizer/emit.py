@@ -20,7 +20,9 @@ is the same function in PyTorch ops. ``emit_pairs`` picks by device.
 Emission order is gaussian-major, so the backward's per-gaussian reduction
 is a sum over contiguous slot segments: ``segment_sum_cuda`` launches
 kernel K4 (``csrc/segsum.cu``) on per-pair gradients written at their
-emission slots; ``segment_sum_plain`` is the same sum in PyTorch ops.
+emission slots; ``segment_sum_plain`` is the same sum in PyTorch ops
+(float64), and ``segment_sum_slot_order`` the float32 sum in slot order
+that K4 must equal bit for bit.
 """
 
 from __future__ import annotations
@@ -74,6 +76,34 @@ def build_feat9(prep) -> torch.Tensor:
                       prep.rgb], dim=1).contiguous()
 
 
+def box_alive_plain(ca, cb, cc, op, x_lo, x_hi, y_lo, y_hi) -> torch.Tensor:
+    """Can a gaussian reach the 1/255 alpha cut (less the 2% margin) in the
+    box [x_lo, x_hi] x [y_lo, y_hi] of pixel-minus-mean offsets? The minimum
+    of the convex conic quadratic over the box is 0 if the mean is inside,
+    else it lies on an edge. Broadcasts; the same arithmetic as
+    ``csrc/cull.cuh::box_alive`` (K1's cull and K3's sub-box mask)."""
+    def qval(dx, dy):
+        return 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+
+    def clip(v, lo, hi):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    def edge_x(dx):                   # min over dy in [y_lo, y_hi] at dx
+        return qval(dx, clip(-cb * dx / torch.clamp_min(cc, 1e-12),
+                             y_lo, y_hi))
+
+    def edge_y(dy):
+        return qval(clip(-cb * dy / torch.clamp_min(ca, 1e-12), x_lo, x_hi),
+                    dy)
+
+    inside = (x_lo <= 0) & (0 <= x_hi) & (y_lo <= 0) & (0 <= y_hi)
+    qmin = torch.minimum(torch.minimum(edge_x(x_lo), edge_x(x_hi)),
+                         torch.minimum(edge_y(y_lo), edge_y(y_hi)))
+    qmin = torch.where(inside, 0.0, qmin)
+    return op * torch.exp(-qmin) >= torch.tensor(ALIVE_MIN,
+                                                 dtype=torch.float32)
+
+
 def emission_plain(feat9, depths, rect, tiles_touched, width: int,
                    height: int, cfg: RasterizerConfig) -> Emission:
     """Per-slot decode with searchsorted over the prefix sum, then the same
@@ -109,25 +139,7 @@ def emission_plain(feat9, depths, rect, tiles_touched, width: int,
     y_lo = ty.to(f32) * t - my
     y_hi = y_lo + (t - 1)
 
-    def qval(dx, dy):
-        return 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
-
-    def clip(v, lo, hi):
-        return torch.minimum(torch.maximum(v, lo), hi)
-
-    def edge_x(dx):                   # min over dy in [y_lo, y_hi] at dx
-        return qval(dx, clip(-cb * dx / torch.clamp_min(cc, 1e-12),
-                             y_lo, y_hi))
-
-    def edge_y(dy):
-        return qval(clip(-cb * dy / torch.clamp_min(ca, 1e-12), x_lo, x_hi),
-                    dy)
-
-    inside = (x_lo <= 0) & (0 <= x_hi) & (y_lo <= 0) & (0 <= y_hi)
-    qmin = torch.minimum(torch.minimum(edge_x(x_lo), edge_x(x_hi)),
-                         torch.minimum(edge_y(y_lo), edge_y(y_hi)))
-    qmin = torch.where(inside, 0.0, qmin)
-    alive = op * torch.exp(-qmin) >= torch.tensor(ALIVE_MIN, dtype=f32)
+    alive = box_alive_plain(ca, cb, cc, op, x_lo, x_hi, y_lo, y_hi)
 
     tile_id = torch.where(valid & alive, ty * gx + tx, num_tiles)
     keys = (tile_id << (32 - tb)) | _depth_msbs(depths[g], tb)
@@ -240,6 +252,30 @@ def segment_sum_plain(dpairs, offsets, counts) -> torch.Tensor:
     return out.to(torch.float32).to(dpairs.device)
 
 
+def segment_sum_slot_order(dpairs, offsets, counts) -> torch.Tensor:
+    """The sum K4 computes, float32 add by float32 add from 0 in slot order
+    over [offsets[g], offsets[g] + counts[g]) (clipped to K): K4's strict
+    reference, equal to it bit for bit. One vectorised add per rank inside
+    the segments, over the gaussians that still have a row at that rank.
+    Same contract as segment_sum_plain; runs on the input's device."""
+    K, N = dpairs.shape[0], counts.shape[0]
+    off = offsets.to(torch.int64).clamp(max=K)
+    n = (off + counts.to(torch.int64)).clamp(max=K) - off
+    out = torch.zeros((N, dpairs.shape[1]), dtype=torch.float32,
+                      device=dpairs.device)
+    if N == 0:
+        return out
+    n_sorted, by_len = torch.sort(n, descending=True)
+    # still_active[j]: how many gaussians have more than j rows.
+    ranks = torch.arange(int(n_sorted[0]), device=n.device)
+    still_active = torch.searchsorted(-n_sorted, -ranks, right=False).tolist()
+    rows = dpairs.detach().to(torch.float32)
+    for j, m in enumerate(still_active):
+        g = by_len[:m]
+        out[g] = out[g] + rows[off[g] + j]
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _k4():
     fn = _build.library("segsum").gs_segment_sum
@@ -250,15 +286,19 @@ def _k4():
 
 
 def segment_sum_cuda(dpairs, offsets, counts) -> torch.Tensor:
-    """Kernel K4: one thread per gaussian sums its contiguous slot segment
-    in slot order (deterministic, no atomics). Same contract as
-    segment_sum_plain."""
+    """Kernel K4: a block stages the contiguous slot span of its 256
+    gaussians in shared memory and each thread adds its own gaussian's rows
+    in slot order (deterministic, no atomics; bit-equal to
+    segment_sum_slot_order). ``offsets`` must be the exclusive prefix sum of
+    ``counts``, as emission makes it. Same contract as segment_sum_plain."""
     K, N = dpairs.shape[0], counts.shape[0]
     _check_cuda(dpairs=(dpairs, torch.float32, (K, 9)),
                 offsets=(offsets, torch.int64, (N,)),
                 counts=(counts, torch.int32, (N,)))
     if N >= 2 ** 31:
         raise ValueError(f"unsupported gaussian count {N}")
+    if dpairs.data_ptr() % 16:
+        raise ValueError("dpairs must be 16-byte aligned")
     out = torch.empty((N, 9), dtype=torch.float32, device=dpairs.device)
     if N == 0:
         return out

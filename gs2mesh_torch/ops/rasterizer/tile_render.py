@@ -14,6 +14,12 @@ positions: ``composite_backward_plain`` is that autograd, taken one tile
 batch at a time (the plain version of kernel K3; the counterpart of the
 JAX package's ``render_tiles_xla`` autodiff). Like the reference backward
 (and K3), the gradient does not gate on the 0.99 alpha clamp.
+
+K3 evaluates a pair only in the 8x4-pixel sub-boxes of the tile in which it
+can reach the alpha cut; ``pair_box_mask_plain`` is the plain version of
+that mask (the emission cull's box test at sub-box size), and
+``composite_plain`` can count the evaluations a compositor restricted by
+it makes.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from typing import NamedTuple
 import torch
 
 from gs2mesh_torch.ops.rasterizer.config import RasterizerConfig
+from gs2mesh_torch.ops.rasterizer.emit import box_alive_plain
 
 BATCH_ELEMS = 1 << 24   # (tiles x pairs x pixels) elements per batch
+BOX_W, BOX_H = 8, 4     # K3's sub-box of a tile: one pixel per warp lane
 
 
 class Composited(NamedTuple):
@@ -34,6 +42,10 @@ class Composited(NamedTuple):
     n_evaluated: torch.Tensor    # () int64 (pair, pixel) evaluations the
                                  # sequential order makes, over image pixels
     n_accepted: torch.Tensor     # () int64 of those, the pairs composited
+    n_box_evaluated: torch.Tensor  # () int64 evaluations when a pair is
+                                 # evaluated over whole sub-boxes: those its
+                                 # box mask keeps and in which some pixel
+                                 # still evaluates it (0 without box_mask)
 
 
 class _ClampNoGate(torch.autograd.Function):
@@ -138,11 +150,67 @@ def _tile_local(rows, lay: _Layout, sl: slice):
                       rows[..., 2:]], dim=-1)
 
 
+def box_mask_local(feat, tile: int, box_w: int = BOX_W,
+                   box_h: int = BOX_H) -> torch.Tensor:
+    """feat (..., 9) pair rows with TILE-LOCAL means -> (..., boxes) bool:
+    whether the pair can reach the alpha cut (with the emission cull's 2%
+    margin) in each box_w x box_h box of the tile, boxes numbered row-major.
+    The emission cull's test (emit.box_alive_plain) over the box's pixel
+    centres; at one box per tile it is emission's own alive decision."""
+    nbx = tile // box_w
+    b = torch.arange(nbx * (tile // box_h), device=feat.device)
+    x_lo = ((b % nbx) * box_w).to(torch.float32) - feat[..., 0, None]
+    y_lo = ((b // nbx) * box_h).to(torch.float32) - feat[..., 1, None]
+    return box_alive_plain(feat[..., 2, None], feat[..., 3, None],
+                           feat[..., 4, None], feat[..., 5, None],
+                           x_lo, x_lo + (box_w - 1), y_lo, y_lo + (box_h - 1))
+
+
+def pair_box_mask_plain(pair_feat, tile_starts, tile_counts, width: int,
+                        height: int, cfg: RasterizerConfig,
+                        box_w: int = BOX_W, box_h: int = BOX_H):
+    """Plain version of the sub-box mask kernel K3 computes as it stages a
+    pair: pair_feat (K, 9) rows of the sorted slots with GLOBAL means ->
+    (K,) int64, bit b set if the pair can land in box b of its tile
+    (box_mask_local's numbering); 0 for slots outside every tile's range.
+    Conservative: every pixel at which alpha_raw reaches 1/255 lies in a
+    box whose bit is set."""
+    gx, gy = cfg.grid_size(width, height)
+    K, T = pair_feat.shape[0], gx * gy
+    if (cfg.tile // box_w) * (cfg.tile // box_h) > 62:
+        raise ValueError("more boxes per tile than bits in the mask")
+    ends = (tile_starts + tile_counts).to(torch.int64)
+    slot = torch.arange(K, dtype=torch.int64, device=pair_feat.device)
+    t = torch.searchsorted(ends, slot, right=True)
+    in_tile = t < T
+    t = t.clamp(max=T - 1)
+    ox = ((t % gx) * cfg.tile).to(torch.float32)
+    oy = ((t // gx) * cfg.tile).to(torch.float32)
+    local = torch.cat([(pair_feat[:, 0] - ox)[:, None],
+                       (pair_feat[:, 1] - oy)[:, None], pair_feat[:, 2:]], 1)
+    alive = box_mask_local(local.detach(), cfg.tile, box_w, box_h)
+    bits = (alive.to(torch.int64)
+            << torch.arange(alive.shape[1], device=alive.device)).sum(1)
+    return torch.where(in_tile, bits, 0)
+
+
+def _box_evaluations(evaluated, bits, tile: int, box_w: int, box_h: int):
+    """(pair, pixel) evaluations when each pair of evaluated (B, L, P) is
+    evaluated over whole boxes: the boxes its mask bits (B, L) keep and in
+    which some pixel evaluates it."""
+    B, L, _ = evaluated.shape
+    nbx, nby = tile // box_w, tile // box_h
+    any_px = evaluated.reshape(B, L, nby, box_h, nbx, box_w).any(5).any(3)
+    kept = (bits[..., None] >> torch.arange(nbx * nby, device=bits.device)) & 1
+    return (any_px.reshape(B, L, -1) & kept.bool()).sum() * (box_w * box_h)
+
+
 def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
                     height: int, cfg: RasterizerConfig,
-                    max_per_tile: int = 4096) -> Composited:
+                    max_per_tile: int = 4096, box_mask=None) -> Composited:
     """pair_feat (K, 9) rows of the sorted slots with GLOBAL means; tile
-    ranges (T,). Differentiable w.r.t. pair_feat."""
+    ranges (T,). Differentiable w.r.t. pair_feat. With box_mask (K,) int64
+    from pair_box_mask_plain it also counts n_box_evaluated."""
     dev = pair_feat.device
     gx, gy = cfg.grid_size(width, height)
     T, P = gx * gy, cfg.pixels_per_tile
@@ -150,6 +218,7 @@ def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
     color, final_T = [], []
     n_eval = torch.zeros((), dtype=torch.int64, device=dev)
     n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    n_box = torch.zeros((), dtype=torch.int64, device=dev)
     for b0 in range(0, T, lay.step):
         sl = slice(b0, min(T, b0 + lay.step))
         idx, valid = _gather(lay, sl, tile_starts, tile_counts,
@@ -160,12 +229,16 @@ def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
         final_T.append(Tf)
         n_eval += (evaluated & lay.in_image[sl, None]).sum()
         n_acc += (accepted & lay.in_image[sl, None]).sum()
+        if box_mask is not None:
+            n_box += _box_evaluations(evaluated & lay.in_image[sl, None],
+                                      box_mask[idx], cfg.tile, BOX_W, BOX_H)
 
     color, final_T = assemble_image(torch.cat(color), torch.cat(final_T), gx,
                                     gy, width, height, cfg.tile)
     return Composited(color=color, final_T=final_T,
                       tile_overflow=torch.any(tile_counts > max_per_tile),
-                      n_evaluated=n_eval, n_accepted=n_acc)
+                      n_evaluated=n_eval, n_accepted=n_acc,
+                      n_box_evaluated=n_box)
 
 
 def composite_backward_plain(pair_feat, tile_starts, tile_counts, dcolor,

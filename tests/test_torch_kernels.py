@@ -1,6 +1,6 @@
 """CUDA kernels K1 (emission), K2 (compositing), K3 (compositing backward)
-and K4 (per-gaussian sum) against their plain PyTorch versions on the card. Marked ``cuda``; each test skips without a
-CUDA device. This file imports neither JAX nor the test scenes (which do),
+and K4 (per-gaussian sum) against their plain PyTorch versions on the card.
+Marked ``cuda``; each test skips without a CUDA device. This file imports neither JAX nor the test scenes (which do),
 so on a machine with a card and no JAX it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
@@ -19,7 +19,9 @@ from gs2mesh_torch.ops.rasterizer.composite import (composite_backward_cuda,
 from gs2mesh_torch.ops.rasterizer.emit import (build_feat9, emission_cuda,
                                                emission_plain,
                                                segment_sum_cuda,
-                                               segment_sum_plain, sort_pairs)
+                                               segment_sum_plain,
+                                               segment_sum_slot_order,
+                                               sort_pairs)
 from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
 from gs2mesh_torch.ops.rasterizer.tile_render import (composite_backward_plain,
                                                       composite_plain,
@@ -29,17 +31,21 @@ pytestmark = pytest.mark.cuda
 W, H = 200, 136                       # ragged last tile row and column
 
 
-@pytest.fixture(scope="module")
-def scene():
+def need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs the same "
                     "kernel-vs-plain checks on the card")
+
+
+def make_scene(n, sigma, seed=0):
+    """(feat9, prep, cfg) of n gaussians on the unit sphere with world-space
+    sigmas around ``sigma``, seen from z = -3 at W x H."""
+    need_cuda()
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    n = 3000
+    rng = np.random.default_rng(seed)
     v = rng.normal(size=(n, 3))
     v /= np.linalg.norm(v, axis=1, keepdims=True)
-    scales = np.abs(rng.normal(0.05, 0.015, size=(n, 3))) + 1e-3
+    scales = np.abs(rng.normal(sigma, 0.3 * sigma, size=(n, 3))) + 1e-3
     q = rng.normal(size=(n, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     shs = rng.normal(scale=0.3, size=(n, 16, 3))
@@ -53,6 +59,11 @@ def scene():
     with torch.no_grad():
         prep = preprocess(*args, cam, 3, cfg)
     return build_feat9(prep), prep, cfg
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return make_scene(3000, 0.05)
 
 
 @pytest.mark.parametrize("capacity", [1 << 16, 512])
@@ -84,35 +95,42 @@ def test_composite_kernel_matches_plain(scene):
     assert float(d.max()) <= 4e-3
 
 
-def test_backward_kernels_match_plain(scene):
+def check_backward_kernels(feat9, prep, cfg):
     """K3 per-pair gradients against the plain autograd on the live pair
-    rows (nonzero in either): >= 99.9% of values within 1e-4 of each
-    column's largest value plus 1e-3 relative (the kernel sums each pair's
-    pixels in another order) and none more than 1e-3 of the column's
-    largest value apart (a 1/255 or T-stop knife edge moves one pixel's
-    share); K4 against the plain sum of the same K3 rows; both
-    bit-identical across two runs."""
-    feat9, prep, cfg = scene
+    rows (nonzero in either) of the emitted slots (K3 leaves the rows past
+    them unwritten): >= 99.9% of values within 1e-4 of each column's
+    largest value plus 1e-3 relative (the kernel sums each pair's pixels in
+    another order) and none more than 1e-3 of the column's largest value
+    apart (a 1/255 or T-stop knife edge moves one pixel's share); K4
+    against the plain sum of the same K3 rows and, bit for bit, against the
+    float32 slot-order sum; both bit-identical across two runs. Returns the
+    sorted pairs."""
     gx, gy = cfg.grid_size(W, H)
     pairs = sort_pairs(emission_cuda(feat9, prep.depths, prep.rect,
                                      prep.tiles_touched, W, H, cfg), gx * gy)
+    assert not bool(pairs.overflow)
     a = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H, cfg)
     color, T = composite_cuda(*a)
     g = torch.Generator(device="cuda").manual_seed(0)
     dC = torch.randn((3, H, W), generator=g, device="cuda")
     dT = torch.randn((H, W), generator=g, device="cuda")
     k3 = [composite_backward_cuda(pairs.ids, pairs.order, pairs.tile_starts,
-                                  pairs.tile_counts, feat9, color, T, dC, dT,
-                                  W, H, cfg) for _ in range(2)]
+                                  pairs.tile_counts, pairs.num_pairs, feat9,
+                                  color, T, dC, dT, W, H, cfg)
+          for _ in range(2)]
     plain = torch.zeros_like(k3[0])
     plain[pairs.order] = composite_backward_plain(
         pair_rows(feat9, pairs.ids), pairs.tile_starts, pairs.tile_counts,
         dC, dT, W, H, cfg, max_per_tile=int(pairs.tile_counts.max()))
     torch.cuda.synchronize()
-    assert torch.equal(k3[0], k3[1])
-    live = plain.ne(0).any(1) | k3[0].ne(0).any(1)
+    n = int(pairs.num_pairs)
+    assert not plain[n:].ne(0).any()
+    assert torch.equal(k3[0][:n], k3[1][:n])
+    got, plain = k3[0][:n], plain[:n]
+    live = plain.ne(0).any(1) | got.ne(0).any(1)
+    assert int(live.sum()) > 0
     scale = plain.abs().amax(0)
-    gap = (k3[0][live] - plain[live]).abs()
+    gap = (got[live] - plain[live]).abs()
     assert float((gap > 1e-3 * plain[live].abs() + 1e-4 * scale)
                  .float().mean()) <= 1e-3
     assert float((gap / scale.clamp_min(1e-30)).max()) <= 1e-3
@@ -123,6 +141,82 @@ def test_backward_kernels_match_plain(scene):
     assert torch.equal(k4[0], k4[1])
     torch.testing.assert_close(k4[0], ref, rtol=1e-5,
                                atol=1e-6 * float(ref.abs().max()))
+    assert torch.equal(k4[0], segment_sum_slot_order(
+        k3[0], pairs.offsets, prep.tiles_touched))
+    return pairs
+
+
+def test_backward_kernels_match_plain(scene):
+    """K3 and K4 on the 3000-gaussian scene of wide splats (see
+    check_backward_kernels for the tolerances)."""
+    check_backward_kernels(*scene)
+
+
+def test_backward_kernels_narrow_splats():
+    """Splats a few pixels wide on the ragged 200x136 image: K3's sub-box
+    mask culls most (pair, warp) work and many pairs are accepted by no
+    warp (their rows come from the fill)."""
+    check_backward_kernels(*make_scene(20_000, 0.008, seed=2))
+
+
+def test_backward_kernels_empty_tiles_and_ragged_batches():
+    """A sparse scene: some tiles hold no pair at all, and the tiles that
+    do hold pair counts that are not a multiple of K3's 64-pair batch."""
+    feat9, prep, cfg = make_scene(60, 0.03, seed=3)
+    pairs = check_backward_kernels(feat9, prep, cfg)
+    counts = pairs.tile_counts
+    assert bool((counts == 0).any()) and bool((counts % 64 != 0).any())
+
+
+K4_CASES = ["empty_segments", "clipped_at_capacity", "long_segment",
+            "ragged_block", "unaligned_span", "single_gaussian"]
+
+
+@pytest.mark.parametrize("case", K4_CASES)
+def test_segment_sum_kernel_edge_cases(case):
+    """K4 bit for bit against the float32 slot-order sum: gaussians with no
+    pairs, segments cut at (and wholly past) the capacity, one segment
+    longer than the 512-row staging chunk, N not a multiple of the
+    256-gaussian block, a block whose span starts off a 16-byte boundary
+    (36-byte rows), and N = 1."""
+    need_cuda()
+    rng = np.random.default_rng(5)
+    N = {"ragged_block": 300, "unaligned_span": 600,
+         "single_gaussian": 1}.get(case, 512)
+    counts = rng.integers(0, 7, size=N)
+    if case == "empty_segments":
+        counts[rng.random(N) < 0.6] = 0
+        counts[:256] = 0                      # a block with an empty span
+    elif case == "long_segment":
+        counts[300] = 3000
+    elif case == "unaligned_span":
+        counts[:256] = 1
+        counts[7] = 2                         # block 1 starts at slot 257
+    elif case == "single_gaussian":
+        counts[0] = 5
+    total = int(counts.sum())
+    K = total - 40 if case == "clipped_at_capacity" else total + 3
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    if case == "unaligned_span":
+        assert offsets[256] * 9 % 4 != 0
+    dp = torch.tensor(rng.normal(size=(K, 9)).astype(np.float32),
+                      device="cuda")
+    off = torch.tensor(offsets, dtype=torch.int64, device="cuda")
+    cnt = torch.tensor(counts.astype(np.int32), device="cuda")
+    got = [segment_sum_cuda(dp, off, cnt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], segment_sum_slot_order(dp, off, cnt))
+    assert not got[0][cnt == 0].ne(0).any()
+
+
+def test_segment_sum_kernel_no_gaussians():
+    need_cuda()
+    out = segment_sum_cuda(
+        torch.zeros((8, 9), device="cuda"),
+        torch.zeros(0, dtype=torch.int64, device="cuda"),
+        torch.zeros(0, dtype=torch.int32, device="cuda"))
+    assert out.shape == (0, 9)
 
 
 def test_rasterize_grads_match_cpu(scene):
