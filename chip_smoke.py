@@ -2,6 +2,17 @@
 """Smoke run of the PyTorch port (gs2mesh_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --save-forward DIR      # also keep K1's and K2's
+                                                  # inputs and outputs
+    python3 chip_smoke.py --replay-forward DIR    # K1 and K2 of this tree on
+                                                  # those inputs, nothing else
+
+To hold another tree's K1 and K2 (the parent commit's, an ablated copy's) to
+this one's on one card, copy that tree's gs2mesh_torch/ and this script into
+a directory of its own, run the full script here with --save-forward, then
+the copy's with --replay-forward on the same DIR: it times K1, K2 and K2 on
+the heaviest tile alone on the saved inputs and fails unless its keys, ids,
+colour and final_T equal the saved ones bit for bit.
 
 Phases (any failure raises, and the script exits non-zero):
   1. needs torch.cuda; prints the card's name and power limit (nvidia-smi);
@@ -10,18 +21,19 @@ Phases (any failure raises, and the script exits non-zero):
      256x256: K1 (emission) keys / ids bit for bit after the stable sort,
      K2 (compositing) image and final_T within 2e-5 on >= 99.99% of values
      and every larger difference <= 4e-3 (one 1/255 knife-edge or T-stop
-     flip); K3 (compositing backward) and K4 (per-gaussian sum) against
-     the plain autograd and the plain sum (tolerances at compare_backward),
-     each bit-identical across two runs, K4 also bit for bit against the
-     float32 slot-order sum; then K1-K4 again, the same checks, on a
-     60k-gaussian scene of splats a few pixels wide at 360x200 (ragged last
-     tile row and column), where K3's sub-box mask and its empty-pair
-     branches do the work;
+     flip), bit-identical across two runs; K3 (compositing backward) and
+     K4 (per-gaussian sum) against the plain autograd and the plain sum
+     (tolerances at compare_backward), each bit-identical across two runs,
+     K4 also bit for bit against the float32 slot-order sum; then K1-K4
+     again, the same checks, on a 60k-gaussian scene of splats a few pixels
+     wide at 360x200 (ragged last tile row and column), where K2's and
+     K3's sub-box mask and K3's empty-pair branches do the work;
   4. the main path at full width: a seeded 300k-gaussian SH-3 model written
      as a GS PLY, a 4-view COLMAP text model at 960x576, and the port's
      Renderer on cuda rendering the 4 stereo pairs to PNG; K1 and K2 must
      each launch once per render, with no pair overflow;
-  5. K1 and K2 timed beside their plain versions at the main path's shapes;
+  5. K1 and K2 timed beside their plain versions at the main path's shapes,
+     K2 also on its heaviest tile alone and bit-identical across two runs;
      K3 and K4 timed on that dense render too (2.9M live pairs; K4 beside
      one index_add_), bit-identical across two runs, K4 against the plain
      and the slot-order sums;
@@ -34,9 +46,11 @@ Phases (any failure raises, and the script exits non-zero):
      no overflow, a finite and falling loss, > 90% of the alive rows kept
      by the densify, and finite params and Adam moments;
   7. 3 more steps of the trainer under torch.profiler: the device idle
-     share and each train_step range's device and host ms; then K3 and
-     K4 at the step's shapes beside their plain versions (K4 also beside
-     one index_add_); all four kernels printed as one JSON "kernels" line;
+     share and each train_step range's device and host ms; then K1 and K2
+     (against their plain versions, timed, K2 on its heaviest tile alone)
+     and K3 and K4 at the step's shapes beside their plain versions (K4
+     also beside one index_add_); all four kernels printed as one JSON
+     "kernels" line;
   8. last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
@@ -67,6 +81,14 @@ K2_OPS_PER_ACCEPTED = 11
 # and 9 adds of them into the pair's sums (the least a sum over the pair's
 # pixels needs, whatever the reduction tree).
 K3_OPS_PER_ACCEPTED = 49
+# K1, FP32 operations per emitted slot: 6 for the tile box's four edges
+# relative to the mean, 4 compares for "mean inside", 14 for each of the four
+# edge minima (the clamped 1-D minimiser with its division, then the conic
+# quadratic), 3 minima, 6 for op * exp(-qmin) against the cut.
+K1_OPS_PER_SLOT = 75
+
+SAVE_FORWARD_DIR = None       # --save-forward: where phases 5 and 7 keep
+                              # K1's and K2's inputs and outputs
 
 
 def check(cond, msg):
@@ -166,6 +188,109 @@ def compare_emission(em_k, em_p, num_tiles, what):
     return sk, max_err
 
 
+def run_forward_kernels(eargs):
+    """K1 -> stable sort -> K2 on emission inputs (feat9, depths, rect,
+    tiles_touched, W, H, cfg). Returns (emission, sorted pairs, colour,
+    final_T)."""
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import emission_cuda, sort_pairs
+
+    feat9, W, H, cfg = eargs[0], *eargs[4:]
+    em = emission_cuda(*eargs)
+    gx, gy = cfg.grid_size(W, H)
+    pairs = sort_pairs(em, gx * gy)
+    color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
+                                    pairs.tile_counts, feat9, W, H, cfg)
+    return em, pairs, color, final_T
+
+
+def time_forward_kernels(eargs, what):
+    """K1 and K2 on these inputs: run twice (bit-identical), then both
+    timed, K2 also on the tile with the most pairs alone (a tile's pairs are
+    walked in order, so no launch is shorter than its slowest tile). K1's
+    time is its wrapper's: the prefix sum of tiles_touched and the sentinel
+    key (a few small PyTorch kernels) and the kernel; the profiles give the
+    kernel alone. Returns (emission, sorted pairs, colour, final_T, ms by
+    name)."""
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import emission_cuda
+
+    feat9, W, H, cfg = eargs[0], *eargs[4:]
+    em, pairs, color, final_T = run_forward_kernels(eargs)
+    em2, _, color2, final_T2 = run_forward_kernels(eargs)
+    torch.cuda.synchronize()
+    check(torch.equal(em.keys, em2.keys) and torch.equal(em.ids, em2.ids),
+          f"{what}: K1 bit-identical across two runs")
+    check(torch.equal(color, color2) and torch.equal(final_T, final_T2),
+          f"{what}: K2 bit-identical across two runs")
+    check(bool(torch.isfinite(color).all() & torch.isfinite(final_T).all()),
+          f"{what}: K2 outputs finite")
+    del em2, color2, final_T2
+    cargs = (pairs.ids, pairs.tile_starts)
+    rest = (feat9, W, H, cfg)
+    heaviest = int(pairs.tile_counts.argmax())
+    alone = torch.zeros_like(pairs.tile_counts)
+    alone[heaviest] = pairs.tile_counts[heaviest]
+    ms = dict(
+        k1=cuda_time_ms(lambda: emission_cuda(*eargs), 50, queued=True),
+        k2=cuda_time_ms(lambda: composite_cuda(*cargs, pairs.tile_counts,
+                                               *rest), 50, queued=True),
+        k2_heaviest_tile=cuda_time_ms(
+            lambda: composite_cuda(*cargs, alone, *rest), 20, queued=True))
+    counts = pairs.tile_counts.float()
+    log(f"{what}: K1 {ms['k1']:.4f} ms, K2 {ms['k2']:.4f} ms, both "
+        f"bit-identical across two runs; pairs per tile mean "
+        f"{float(counts.mean()):.0f}, max {int(counts.max())}; K2 on that "
+        f"heaviest tile alone {ms['k2_heaviest_tile']:.4f} ms")
+    return em, pairs, color, final_T, ms
+
+
+def forward_case_path(name):
+    return os.path.join(SAVE_FORWARD_DIR,
+                        name.replace(" ", "_").replace("/", "_") + ".pt")
+
+
+def save_forward_case(name, eargs, em, color, final_T):
+    """With --save-forward: K1's and K2's inputs and outputs, for another
+    tree's --replay-forward."""
+    if SAVE_FORWARD_DIR is None:
+        return
+    feat9, depths, rect, tiles_touched, W, H, cfg = eargs
+    os.makedirs(SAVE_FORWARD_DIR, exist_ok=True)
+    torch.save(dict(name=name, feat9=feat9, depths=depths, rect=rect,
+                    tiles_touched=tiles_touched, width=W, height=H,
+                    pair_capacity=cfg.pair_capacity, keys=em.keys,
+                    ids=em.ids, color=color, final_T=final_T),
+               forward_case_path(name))
+    log(f"{name}: forward case saved to {forward_case_path(name)}")
+
+
+def replay_forward(case_dir):
+    """--replay-forward: this tree's K1 and K2 on every case saved in
+    case_dir, timed, and held bit for bit to the saved outputs. One JSON
+    line per case."""
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig
+
+    cases = sorted(f for f in os.listdir(case_dir) if f.endswith(".pt"))
+    check(cases, f"no saved forward case in {case_dir}")
+    for f in cases:
+        c = torch.load(os.path.join(case_dir, f), map_location="cuda")
+        cfg = RasterizerConfig(pair_capacity=c["pair_capacity"])
+        eargs = (c["feat9"], c["depths"], c["rect"], c["tiles_touched"],
+                 c["width"], c["height"], cfg)
+        with torch.no_grad():
+            em, _, color, final_T, ms = time_forward_kernels(eargs, c["name"])
+        same = dict(k1=torch.equal(em.keys, c["keys"])
+                    and torch.equal(em.ids, c["ids"]),
+                    k2=torch.equal(color, c["color"])
+                    and torch.equal(final_T, c["final_T"]))
+        print(json.dumps({"forward_case": c["name"], "ms": ms,
+                          "equal_to_saved": same}), flush=True)
+        check(same["k1"], f"{c['name']}: K1 keys / ids differ from the saved")
+        check(same["k2"], f"{c['name']}: K2 colour / final_T differ from "
+              f"the saved")
+
+
 def phase_kernels_vs_plain(what, n, W, H, scale, min_pairs_per_tile):
     """K1 and K2 against their plain versions on a seeded sphere scene."""
     from gs2mesh_torch.core.camera import make_camera
@@ -201,12 +326,15 @@ def phase_kernels_vs_plain(what, n, W, H, scale, min_pairs_per_tile):
         pin = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H,
                cfg)
         color_k, T_k = composite_cuda(*pin)
+        color_2, T_2 = composite_cuda(*pin)
         rows = pair_rows(feat9, pairs.ids)
         plain = composite_plain(
             rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg,
             int(pairs.tile_counts.max()), box_mask=pair_box_mask_plain(
                 rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg))
         torch.cuda.synchronize()
+        check(torch.equal(color_k, color_2) and torch.equal(T_k, T_2),
+              f"{what}: K2 bit-identical across two runs")
         compare_composite(color_k, T_k, plain.color, plain.final_T, what)
     log_k3_evaluations(what, plain)
     return what, pairs, feat9, prep, color_k, T_k, W, H, cfg
@@ -214,13 +342,13 @@ def phase_kernels_vs_plain(what, n, W, H, scale, min_pairs_per_tile):
 
 def log_k3_evaluations(what, plain):
     """The (pair, pixel) evaluations of the plain compositor (every pixel
-    of a tile, each pair until the pixel stops: what K3's bound counts)
-    beside those K3 makes (whole 8x4 sub-boxes: the ones a pair's mask keeps
-    and in which a pixel still evaluates it)."""
+    of a tile, each pair until the pixel stops: what K2's and K3's bounds
+    count) beside those K2 and K3 make (whole 8x4 sub-boxes: the ones a
+    pair's mask keeps and in which a pixel still evaluates it)."""
     ev, acc, box = (int(plain.n_evaluated), int(plain.n_accepted),
                     int(plain.n_box_evaluated))
     log(f"{what}: per-pixel evaluations {ev}, accepted {acc} "
-        f"({100 * acc / max(ev, 1):.2f}%); K3 evaluates whole sub-boxes: "
+        f"({100 * acc / max(ev, 1):.2f}%); K2 and K3 evaluate whole sub-boxes: "
         f"{box} ({100 * box / max(ev, 1):.2f}% of the per-pixel count, "
         f"{100 * acc / max(box, 1):.2f}% of them accepted)")
 
@@ -454,6 +582,28 @@ def bound(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def emission_work(n_gauss, capacity, num_pairs):
+    """K1's bytes (60 per gaussian in, a key and an id per slot of the
+    capacity out) and FP32 operations (the box test of every emitted
+    slot)."""
+    return (n_gauss * (36 + 4 + 16 + 4) + capacity * (8 + 4),
+            min(num_pairs, capacity) * K1_OPS_PER_SLOT)
+
+
+def forward_composite_work(n_live, n_tiles, n_gauss, n_pixels, plain):
+    """K2's bytes (an id per live pair, a range per tile, every feat9 row
+    once, four floats per pixel out) and FP32 operations, from the plain
+    compositor's evaluated and accepted counts."""
+    return (n_live * 4 + n_tiles * 8 + n_gauss * 36 + 4 * n_pixels * 4,
+            compositor_ops(plain, K2_OPS_PER_ACCEPTED))
+
+
+def log_emission_bounds(what, nbytes, nops):
+    log(f"{what}: K1 work {nbytes} bytes, {nops} FP32 ops: byte bound "
+        f"{bound(nbytes, 0)[0]:.4f} ms, operation bound "
+        f"{bound(0, nops)[0]:.4f} ms")
+
+
 def backward_rows(train_t, dense_t, launches):
     """K3's and K4's rows of the kernels line: the training step's numbers
     under the common keys, the dense serving render's under dense_*."""
@@ -664,9 +814,11 @@ def step_stages(prof, n):
     profile of n taken steps. A kernel (or copy) counts toward the range in
     which the operator that launched it started on the host clock; the
     backward's operators run on autograd's device thread, inside the
-    waiting thread's backward range. Of the backward's device time, K3's
-    (its fill kernel included) and K4's (by kernel name) are also given on
-    their own."""
+    waiting thread's backward range. K1's and K2's device time (in the
+    forward) and K3's and K4's (in the backward) are also given on their
+    own (own_kernel_ms). A kernel launched outside every operator, as K1
+    is, belongs to no operator's list: its time is in the busy total and in
+    own_kernel_ms, and in no range."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -679,7 +831,7 @@ def step_stages(prof, n):
                     and e.name.startswith("train_step."))
     starts = [a for a, _, _ in ranges]
     host = dict.fromkeys(STEP_STAGES, 0.0)
-    dev = dict.fromkeys(STEP_STAGES + ("K3", "K4", "outside"), 0.0)
+    dev = dict.fromkeys(STEP_STAGES + ("outside",), 0.0)
     for a, b, stage in ranges:
         host[stage] += (b - a) / n / 1e3
     for e in prof.events():
@@ -690,10 +842,7 @@ def step_stages(prof, n):
             else "outside"
         for k in e.kernels:
             dev[stage] += k.duration / n / 1e3
-            if stage == "backward" and "composite_backward" in k.name:
-                dev["K3"] += k.duration / n / 1e3
-            elif stage == "backward" and "segment_sum_kernel" in k.name:
-                dev["K4"] += k.duration / n / 1e3
+    dev.update(own_kernel_ms(prof, n))
     return host, dev
 
 
@@ -705,11 +854,9 @@ def phase_train_timings(trainer, step_wall_ms):
     versions and, for K4, the one PyTorch call that computes the same sum."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
     from gs2mesh_torch.ops.rasterizer.emit import (build_feat9,
-                                                   emission_cuda,
-                                                   segment_sum_plain,
-                                                   sort_pairs)
+                                                   emission_plain,
+                                                   segment_sum_plain)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
     from gs2mesh_torch.ops.rasterizer.tile_render import (
         composite_backward_plain, composite_plain, pair_box_mask_plain,
@@ -743,6 +890,9 @@ def phase_train_timings(trainer, step_wall_ms):
                 f"{s} {dev[s]:.4f} / {host[s]:.4f}" for s in STEP_STAGES)
             + f"; outside the ranges {dev['outside']:.4f} device ms; "
             f"attributed {attributed:.4f} of {busy_ms:.4f} busy")
+        log(f"  forward device ms: K1 {dev['K1']:.4f} (in no range), K2 "
+            f"{dev['K2']:.4f}, activations, preprocess and the sort "
+            f"{dev['forward'] - dev['K2']:.4f}")
         log(f"  backward device ms: K3 {dev['K3']:.4f}, K4 {dev['K4']:.4f}, "
             f"loss backward and autograd through preprocess and the "
             f"activations {dev['backward'] - dev['K3'] - dev['K4']:.4f}")
@@ -757,16 +907,16 @@ def phase_train_timings(trainer, step_wall_ms):
                           inp["opacities"], inp["shs"], cam, 3, cfg)
         feat9 = build_feat9(prep)
         gx, gy = cfg.grid_size(W, H)
-        em = emission_cuda(feat9, prep.depths, prep.rect, prep.tiles_touched,
-                           W, H, cfg)
-        pairs = sort_pairs(em, gx * gy)
-        color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
-                                        pairs.tile_counts, feat9, W, H, cfg)
+        what = "300k/960x576 train step"
+        eargs = (feat9, prep.depths, prep.rect, prep.tiles_touched, W, H, cfg)
+        em, pairs, color, final_T, ft = time_forward_kernels(eargs, what)
+        save_forward_case(what, eargs, em, color, final_T)
+        _, k1_err = compare_emission(em, emission_plain(*eargs), gx * gy,
+                                     what)
     image = (color + final_T[None] * bg[:, None, None]).requires_grad_(True)
     loss = gs_loss(image, target)
     (dC,) = torch.autograd.grad(loss, image)
     dT = (dC * bg[:, None, None]).sum(0)
-    what = "300k/960x576 train step"
     with torch.no_grad():
         k3, k4, k3_ms, k4_ms, lib4_ms = time_backward_kernels(
             pairs, feat9, prep.tiles_touched, color, final_T, dC, dT, W, H,
@@ -790,9 +940,18 @@ def phase_train_timings(trainer, step_wall_ms):
     log(f"K3 / K4 standalone ms: K3 {k3_ms:.4f} (plain {plain3_ms:.1f}), K4 "
         f"{k4_ms:.4f} (plain {plain4_ms:.1f}, index_add_ {lib4_ms:.4f})")
     log_k3_evaluations(what, plain)
+    k2_err = compare_composite(color, final_T, plain.color, plain.final_T,
+                               what)
 
     n_live = int(pairs.tile_counts.sum())
     N, P = feat9.shape[0], W * H
+    k1_work = emission_work(N, cfg.pair_capacity, int(pairs.num_pairs))
+    k2_work = forward_composite_work(n_live, gx * gy, N, P, plain)
+    log_emission_bounds(what, *k1_work)
+    log(f"{what}: K2 {ft['k2']:.4f} ms against a bound of "
+        f"{bound(*k2_work)[0]:.4f} ms ({bound(*k2_work)[1]}), K1 "
+        f"{ft['k1']:.4f} ms against {bound(*k1_work)[0]:.4f} ms "
+        f"({bound(*k1_work)[1]})")
     k3_ops = compositor_ops(plain, K3_OPS_PER_ACCEPTED)
     k3_bytes = n_live * (4 + 8 + 36) + N * 36 + 8 * P * 4 + gx * gy * 8
     k4_bytes = int(pairs.num_pairs) * 36 + N * (8 + 4 + 36)
@@ -801,7 +960,12 @@ def phase_train_timings(trainer, step_wall_ms):
         f"{k3_ops} FP32 ops, {k3_bytes} bytes; K4 bytes {k4_bytes} over "
         f"{int(pairs.num_pairs)} slots (capacity {pairs.ids.shape[0]})")
     return dict(k3=(k3_ms, plain3_ms, None, k3_err, k3_bytes, k3_ops),
-                k4=(k4_ms, plain4_ms, lib4_ms, k4_err, k4_bytes, 0))
+                k4=(k4_ms, plain4_ms, lib4_ms, k4_err, k4_bytes, 0),
+                k1=dict(train_ms=ft["k1"], train_max_abs_err=k1_err,
+                        train_bound_ms=bound(*k1_work)[0]),
+                k2=dict(train_ms=ft["k2"], train_max_abs_err=k2_err,
+                        train_bound_ms=bound(*k2_work)[0],
+                        train_heaviest_tile_ms=ft["k2_heaviest_tile"]))
 
 
 def phase_timings(r, launches):
@@ -811,9 +975,7 @@ def phase_timings(r, launches):
     sums, with no plain backward at this density. Returns K1's and K2's
     rows of the kernels line and K3's and K4's dense numbers."""
     from gs2mesh_torch.core.camera import camera_from_euler
-    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
     from gs2mesh_torch.ops.rasterizer.emit import (build_feat9,
-                                                   emission_cuda,
                                                    emission_plain,
                                                    sort_pairs)
     from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
@@ -832,31 +994,29 @@ def phase_timings(r, launches):
                               inp["rotations"], inp["opacities"],
                               inp["shs"], cam, 3, cfg)
 
+        what = "300k/960x576 dense render"
         prep = run_preprocess()
         feat9 = build_feat9(prep)
         eargs = (feat9, prep.depths, prep.rect, prep.tiles_touched, W, H, cfg)
-        em = emission_cuda(*eargs)
-        pairs, k1_err = compare_emission(em, emission_plain(*eargs), gx * gy,
-                                         "300k/960x576")
-        cargs = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W,
-                 H, cfg)
-        color_k, T_k = composite_cuda(*cargs)
+        em, pairs, color_k, T_k, ft = time_forward_kernels(eargs, what)
+        save_forward_case(what, eargs, em, color_k, T_k)
+        _, k1_err = compare_emission(em, emission_plain(*eargs), gx * gy,
+                                     what)
         mpt = int(pairs.tile_counts.max())
         pargs = (pair_rows(feat9, pairs.ids), pairs.tile_starts,
                  pairs.tile_counts, W, H, cfg, mpt)
         plain = composite_plain(*pargs, box_mask=pair_box_mask_plain(
             pargs[0], pairs.tile_starts, pairs.tile_counts, W, H, cfg))
         k2_err = compare_composite(color_k, T_k, plain.color, plain.final_T,
-                                   "300k/960x576")
+                                   what)
 
         t = dict(
             preprocess=cuda_time_ms(run_preprocess, 20),
-            k1=cuda_time_ms(lambda: emission_cuda(*eargs), 50, queued=True),
+            k1=ft["k1"],
             k1_plain=cuda_time_ms(lambda: emission_plain(*eargs), 5),
             sort=cuda_time_ms(lambda: sort_pairs(em, gx * gy), 20),
-            k2=cuda_time_ms(lambda: composite_cuda(*cargs), 50, queued=True),
+            k2=ft["k2"], k2_heaviest_tile=ft["k2_heaviest_tile"],
             k2_plain=cuda_time_ms(lambda: composite_plain(*pargs), 2))
-        what = "300k/960x576 dense render"
         k3, k4, k3_ms, k4_ms, lib4_ms = time_backward_kernels(
             pairs, feat9, prep.tiles_touched, color_k, T_k,
             *loss_cotangents(color_k, T_k), W, H, cfg, what)
@@ -868,19 +1028,19 @@ def phase_timings(r, launches):
 
     n_live = int(pairs.tile_counts.sum())
     n_eval = int(plain.n_evaluated)
-    k1_bytes = N * (36 + 4 + 16 + 4) + K * (8 + 4)
-    k2_bytes = n_live * 4 + gx * gy * 8 + N * 36 + 4 * W * H * 4
-    k2_ops = compositor_ops(plain, K2_OPS_PER_ACCEPTED)
+    k1_bytes, k1_ops = emission_work(N, K, int(pairs.num_pairs))
+    k2_bytes, k2_ops = forward_composite_work(n_live, gx * gy, N, W * H,
+                                              plain)
     log(f"K2 work: {n_live} live pairs, {n_eval} (pair, pixel) evaluations "
         f"({n_eval / (W * H):.1f} per pixel), {int(plain.n_accepted)} "
-        f"accepted, {k2_ops} FP32 ops, "
-        f"{k2_bytes} bytes; K1 bytes {k1_bytes}")
+        f"accepted, {k2_ops} FP32 ops, {k2_bytes} bytes")
+    log_emission_bounds(what, k1_bytes, k1_ops)
 
     rows = []
     for name, src, replaces, key, err, (nb, nops) in (
             ("emit_pairs", "gs2mesh_torch/csrc/emit.cu",
              "gs2mesh_tpu/ops/rasterizer/emit.py:191", "emit", k1_err,
-             (k1_bytes, 0)),
+             (k1_bytes, k1_ops)),
             ("composite_forward", "gs2mesh_torch/csrc/composite.cu",
              "gs2mesh_tpu/ops/rasterizer/pallas_kernels.py:184",
              "composite", k2_err, (k2_bytes, k2_ops))):
@@ -891,6 +1051,7 @@ def phase_timings(r, launches):
                      "max_abs_err": err, "ms": t[short],
                      "plain_ms": t[short + "_plain"], "bound_ms": bms,
                      "bound_by": by, "library_ms": None})
+    rows[1]["heaviest_tile_ms"] = t["k2_heaviest_tile"]
     dense = dict(
         k3=(k3_ms, None, n_live * (4 + 8 + 36) + N * 36 + 8 * W * H * 4
             + gx * gy * 8, compositor_ops(plain, K3_OPS_PER_ACCEPTED)),
@@ -899,6 +1060,24 @@ def phase_timings(r, launches):
         log(f"{what}: {key.upper()} {ms:.4f} ms against a bound of "
             f"{bound(nb, nops)[0]:.4f} ms ({bound(nb, nops)[1]})")
     return rows, dense
+
+
+OWN_KERNELS = {"K1": "emit_pairs_kernel", "K2": "composite_forward_kernel",
+               "K3": "composite_backward", "K4": "segment_sum_kernel"}
+
+
+def own_kernel_ms(prof, n):
+    """Device ms per unit of each of the port's kernels over n profiled
+    units, by kernel name (K3 with its fill kernel)."""
+    from torch.autograd import DeviceType
+
+    ms = dict.fromkeys(OWN_KERNELS, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            for kernel, part in OWN_KERNELS.items():
+                if part in e.name:
+                    ms[kernel] += e.time_range.elapsed_us() / n / 1e3
+    return ms
 
 
 def report_profile(prof, wall_us, n, unit):
@@ -924,6 +1103,8 @@ def report_profile(prof, wall_us, n, unit):
         f"{sum(c for _, c in by_name.values()) // n} device events/{unit}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"  {t / n / 1e3:8.4f} ms/{unit} x{c // n:<4d} {name[:90]}")
+    log(f"  the port's kernels, device ms/{unit}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in own_kernel_ms(prof, n).items()))
     return busy_us / n / 1e3
 
 
@@ -946,12 +1127,20 @@ def phase_profile(r, n=3):
 
 
 def main():
+    global SAVE_FORWARD_DIR
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--save-forward", metavar="DIR")
+    ap.add_argument("--replay-forward", metavar="DIR")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "one CUDA card", file=sys.stderr)
         sys.exit(2)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain compositor bmm
     torch.backends.cudnn.allow_tf32 = False
+    SAVE_FORWARD_DIR = opts.save_forward
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -966,8 +1155,16 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for name, out in sorted(_build.build_log.items()):
         log(f"--- nvcc {name}.cu ---\n{out.strip()}")
-    from gs2mesh_torch.ops.rasterizer.composite import backward_blocks_per_sm
-    log(f"K3 blocks per SM (occupancy API): {backward_blocks_per_sm()}")
+    if opts.replay_forward:
+        replay_forward(opts.replay_forward)
+        return
+    from gs2mesh_torch.ops.rasterizer.composite import kernel_info
+    from gs2mesh_torch.ops.rasterizer.emit import emission_kernel_info
+    for name, info in (("K1", emission_kernel_info()),
+                       ("K2", kernel_info("K2")), ("K3", kernel_info("K3"))):
+        log(f"{name}: {info['registers']} registers a thread, "
+            f"{info['shared_bytes']} B static shared memory, "
+            f"{info['blocks_per_sm']} blocks per SM (occupancy API)")
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "smoke_out")
@@ -991,10 +1188,11 @@ def main():
     trainer, step_wall_ms, train_launches = phase_train(work)
     log(f"phase train: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    rows += backward_rows(phase_train_timings(trainer, step_wall_ms), dense,
-                          train_launches)
+    train_t = phase_train_timings(trainer, step_wall_ms)
+    rows += backward_rows(train_t, dense, train_launches)
     for row, key in zip(rows, ("K1", "K2")):
         row["launches_train"] = train_launches[key]
+        row.update(train_t[key.lower()])
     log(f"phase train timings + profile: {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work)
 

@@ -88,3 +88,17 @@ def library(name: str) -> ctypes.CDLL:
         if not _libs:
             _build_all()
         return _libs[name]
+
+
+def kernel_info(fn, which: int = 0) -> dict:
+    """Calls a library's ``int fn(int which, int out[3])`` and names what it
+    fills in: a kernel's registers per thread, static shared memory bytes
+    and the blocks the occupancy API fits on one SM."""
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(which, out)
+    if err != 0:
+        raise RuntimeError(f"kernel attribute query failed: CUDA error {err}")
+    return {"registers": out[0], "shared_bytes": out[1],
+            "blocks_per_sm": out[2]}

@@ -5,29 +5,59 @@
 // Replaces gs2mesh_tpu/ops/rasterizer/pallas_kernels.py::_forward_kernel
 // (launched by _fwd_call). The TPU kernel streams a tile's depth-sorted pair
 // chunks through VMEM and composites a whole 128-pair chunk at once with
-// prefix-product scans and an MXU matmul. Here one 1024-thread block owns one
-// 32x32 tile and each thread composites its own pixel sequentially, in the
-// reference's (forward.cu renderCUDA) order:
+// prefix-product scans and an MXU matmul. Here each pixel composites
+// sequentially, in the reference's (forward.cu renderCUDA) order:
 //   skip a pair if alpha_raw < 1/255; alpha = min(0.99, alpha_raw);
 //   stop BEFORE the first pair whose T * (1 - alpha) < 1e-4.
-// The block streams its [start, start + count) sorted pairs in batches of
-// `chunk`: the first `chunk` threads gather each pair's (mean, conic,
-// opacity, rgb) by gaussian id from the (N, 9) feature rows into shared
-// memory, then every thread walks the batch. The block exits as soon as all
-// of its pixels are done (__syncthreads_count).
 //
-// Bound: operations. At the 300k-gaussian, 960x576 scene each (pair, pixel)
-// evaluation costs ~12 FP32 ops and one expf, and there are far more
-// evaluations than bytes to move (the feature gather is 36 bytes per pair per
-// tile, shared by 1024 pixels). Design: the per-pair data sits in shared
-// memory and is broadcast to all threads of a warp; the early exit cuts work
-// once a tile is saturated.
+// Bound: operations. At the 300k-gaussian, 960x576 scene there are far more
+// (pair, pixel) evaluations than bytes to move (the feature gather is 36
+// bytes per pair), and most of them cannot land: a splat reaches the 1/255
+// cut in a few percent of its tile's pixels while training and in under half
+// of them on a dense model. What is left once those are gone sits in few
+// tiles: on a dense model the tiles along a silhouette hold thousands of
+// pairs that never saturate the pixels outside it, and a tile's pairs must
+// be walked in order, so a launch is as long as its slowest block.
+//
+// Design:
+//  * One 256-thread block per 16x16 QUARTER of a 32x32 tile, a thread one
+//    pixel, warp w on the quarter's 8x4 sub-box w. The four blocks of a
+//    tile walk the same sorted pair range on (most likely) four SMs, which
+//    spreads a heavy tile's serial walk, and a quarter whose pixels are all
+//    done leaves on its own. 56 registers, 4 blocks on an SM.
+//  * As a batch of kBatch pairs is staged (stage_batch, shared with K3),
+//    each pair gets the mask of the block's sub-boxes in which it can reach
+//    the alpha cut: K1's box test with its 2% margin, so that no pixel that
+//    could be accepted (or stopped at) is lost and colour and final_T keep
+//    their bits. The test is asked only of the sub-boxes that still have a
+//    running pixel and meet the box around the pair's reach (a few interval
+//    tests), and a warp deals those candidates out one a lane: a batch of
+//    small splats costs one round of box tests, not one per pair.
+//  * A warp turns 32 masks at a time into its own list of pairs (one
+//    ballot) and walks only those. The pixel's update is branch-free, so a
+//    warp never diverges; a warp with no running pixel skips the walk.
+//  * Raw rows, staged pairs and masks are double-buffered: while the block
+//    walks batch b it stages batch b + 1 and batch b + 2's rows arrive by
+//    cp.async (ids one batch further ahead in registers). A batch costs one
+//    barrier, past which each warp's "still running" flag tells the block
+//    which sub-boxes the next staging may skip and when to leave.
 //
 // Numerics: alpha must decide `alpha_raw >= 1/255` exactly as the reference
 // does, so the tile-local mean (mx - 32*tx), dx/dy and the power
 // (-0.5*ca)*(dx*dx) + dy*((-0.5*cc)*dy - cb*dx) are separately rounded
 // __f*_rn ops in the reference's order (the build also passes -fmad=false),
-// and expf is the full-precision one.
+// expf is the full-precision one, and a pixel adds its accepted pairs in
+// depth order.
+//
+// What still holds it back: the silhouette quarters of a dense model, whose
+// running sub-boxes each visit every pair (about 55 instructions a visit on
+// one warp); every quarter stages its tile's whole pair range, so staging
+// is done four times over; the launch order of the blocks ignores their
+// weight. Tried and dropped: a floor on `power` under which the expf is
+// skipped (a warp pays the exp if one lane needs it, and the vote cost more
+// than it saved), whole-tile blocks with four pixels a thread as in K3 (a
+// warp then executes four sub-boxes' work whether they run or not), two pairs
+// a step, sub-boxes dealt to warps from all over the tile.
 
 // ---- K3 ----
 //
@@ -61,15 +91,16 @@
 // tile's busiest warp.
 //
 // Design:
-//  * One 256-thread block per 32x32 tile (78 registers, 23 KB of shared
+//  * One 256-thread block per 32x32 tile (79 registers, 23 KB of shared
 //    memory: 3 blocks on an SM). The tile is cut into 32 sub-boxes of 8x4
 //    pixels; warp w owns the four of one 16x8 region and each lane one pixel
 //    in each of the four, so a thread carries 4 pixels.
-//  * As a batch of kBatch pairs is staged, lane b of the staging warp runs
-//    K1's box test (cull.cuh) for sub-box b and one __ballot_sync makes the
-//    pair's 32-bit mask of the sub-boxes in which it can reach the alpha
-//    cut. The test keeps K1's 2% margin, so no pixel that K2 accepted (or
-//    stopped at) is lost.
+//  * As a batch of kBatch pairs is staged (stage_batch, shared with K2),
+//    K1's box test (cull.cuh) gives each pair its 32-bit mask of the
+//    sub-boxes in which it can reach the alpha cut, asked only of the
+//    sub-boxes that still have a running pixel and meet the box around the
+//    pair's reach. The test keeps K1's 2% margin, so no pixel that K2
+//    accepted (or stopped at) is lost.
 //  * A warp turns 32 masks at a time into its own list of pairs (one
 //    ballot) and walks only those, and of a pair only the sub-boxes whose
 //    bit is set and in which a pixel is still running. A (pair, warp) that
@@ -111,33 +142,185 @@
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kThreads = kTile * kTile;
 constexpr int kCols = 9;
 constexpr unsigned kFull = 0xffffffffu;
 
-// K3's block: 8 warps, each on the four 8x4 sub-boxes of a 16x8 region, a
-// thread carrying one pixel of each.
+// A block, in K2 and K3 alike, has 8 warps and works on 8x4-pixel
+// sub-boxes, lane l on the pixel (l % 8, l / 8) of a sub-box. K3's block
+// owns a whole tile: each warp the four sub-boxes of a 16x8 region, a thread
+// carrying one pixel of each. K2's block owns a 16x16 quarter of a tile:
+// each warp one sub-box, a thread one pixel.
 constexpr int kSub = 4;
-constexpr int kBwdWarps = 32 / kSub;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kBwdMinBlocks = 3;   // blocks wanted on an SM
+constexpr int kWarps = 32 / kSub;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQuarter = 16;       // edge of K2's quarter tile
+constexpr int kFwdMinBlocks = 4;   // blocks wanted on an SM
+constexpr int kBwdMinBlocks = 3;
 constexpr int kBoxW = 8, kBoxH = 4;
 constexpr int kBatch = 64;       // pairs staged per batch
 constexpr int kMaskWords = kBatch / 32;
-static_assert(kBatch * 4 == kBwdThreads, "4 gathering threads per pair");
+static_assert(kBatch * 4 == kThreads, "4 gathering threads per pair");
 static_assert(kBatch % 32 == 0, "whole mask words");
 static_assert(kSub == 4 && kBoxW * kBoxH == 32 && kBoxW * 4 == kTile,
               "sub-box layout");
+static_assert(kQuarter * 2 == kTile &&
+                  (kQuarter / kBoxW) * (kQuarter / kBoxH) == kWarps,
+              "a quarter tile is one sub-box a warp");
 
-// Stages pair row f (GLOBAL mean) for a tile with origin (ox, oy):
-// geo = (tile-local mean x, y, -0.5*ca, opacity), col = (cb, -0.5*cc, r, g).
-__device__ __forceinline__ void stage_pair(const float* f, float ox, float oy,
-                                           float4* geo, float4* col,
-                                           float* blue) {
-  *geo = make_float4(__fsub_rn(f[0], ox), __fsub_rn(f[1], oy), -0.5f * f[2],
-                     f[5]);
-  *col = make_float4(f[3], -0.5f * f[4], f[6], f[7]);
-  *blue = f[8];
+// A batch of staged pairs.
+struct Staged {
+  float4 geo[kBatch];     // tile-local mean x, y; -0.5*ca; opacity
+  float4 col[kBatch];     // cb; -0.5*cc; r; g
+  float blue[kBatch];
+  unsigned mask[kBatch];  // sub-boxes (of the block's) the pair can reach
+};
+
+// Tile-local origin of the sub-box with mask bit b = warp * kSub + q: warp
+// w owns the 16x8 region at ((w & 1) * 16, (w / 2) * 8), whose sub-box q lies
+// at ((q & 1) * 8, (q / 2) * 4) inside it. A warp's sub-boxes are neighbours,
+// so that a small splat meets one warp or two.
+__device__ __forceinline__ int sub_box_pos(int b) {   // row-major, 4 across
+  const int w = b / kSub, q = b % kSub;
+  return ((w >> 1) * 2 + (q >> 1)) * 4 + (w & 1) * 2 + (q & 1);
+}
+__device__ __forceinline__ int sub_box_x(int b) {
+  return (sub_box_pos(b) & 3) * kBoxW;
+}
+__device__ __forceinline__ int sub_box_y(int b) {
+  return (sub_box_pos(b) >> 2) * kBoxH;
+}
+
+// The sub-boxes a block owns, as stage_batch numbers them (mask bit b):
+// tile-local origin of each. K3: the tile's 32.
+struct TileBoxes {
+  static constexpr int kCount = 32;
+  __device__ __forceinline__ int x(int b) const { return sub_box_x(b); }
+  __device__ __forceinline__ int y(int b) const { return sub_box_y(b); }
+};
+// K2: the 8 of the quarter tile at (qx, qy), two across, warp b on box b.
+struct QuarterBoxes {
+  static constexpr int kCount = kWarps;
+  int qx, qy;
+  __device__ __forceinline__ int x(int b) const { return qx + (b & 1) * kBoxW; }
+  __device__ __forceinline__ int y(int b) const { return qy + (b >> 1) * kBoxH; }
+};
+
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Thread j of the block's 256 starts the copy of floats {j & 3, (j & 3) + 4,
+// 8 if j & 3 == 0} of gaussian id's feat9 row into row j / 4 of raw (a
+// batch's gathered rows); nothing for id < 0.
+__device__ __forceinline__ void gather_row(const float* __restrict__ feat9,
+                                           int id, float* raw, int j) {
+  if (id < 0) return;
+  const int gpart = j & 3;
+  const float* src = feat9 + (int64_t)id * kCols;
+  float* dst = raw + (j >> 2) * kCols;
+  cp_async_f32(dst + gpart, src + gpart);
+  cp_async_f32(dst + gpart + 4, src + gpart + 4);
+  if (gpart == 0) cp_async_f32(dst + 8, src + 8);
+}
+
+// Half-extents (pixels, about the mean) of the axis-aligned box around the
+// ellipse inside which a gaussian can reach the alpha cut less cull.cuh's 2%
+// margin: q <= L = log(op / kAliveMin) bounds dx^2 by 2 L cc / det and dy^2
+// by 2 L ca / det. Widened by 1% and half a pixel, far more than the float
+// error of the box test it screens for; +inf for a conic that is not
+// positive definite; -inf (no box meets it) where op is under the cut.
+__device__ __forceinline__ void reach_extents(float ca, float cb, float cc,
+                                              float op, float* hx, float* hy) {
+  const float L = logf(op / gs_cull::kAliveMin) + 1e-3f;
+  const float k = 2.0f * L / (ca * cc - cb * cb);
+  const float ex = k * cc, ey = k * ca;
+  const float inf = __int_as_float(0x7f800000);
+  *hx = L < 0.0f ? -inf : ex >= 0.0f ? 1.01f * sqrtf(ex) + 0.5f : inf;
+  *hy = L < 0.0f ? -inf : ey >= 0.0f ? 1.01f * sqrtf(ey) + 0.5f : inf;
+}
+
+// Stages the n gathered rows (GLOBAL means) of a batch for the tile with
+// origin (ox, oy) and the block's sub-boxes `boxes`; warp w takes pairs
+// 8w .. 8w + 7, four lanes a pair. A pair's mask is K1's box test (cull.cuh,
+// with its 2% margin) on each sub-box, but only where it can matter: on the
+// sub-boxes in `live` (those that still have a running pixel) that meet the
+// pair's reach_extents box, a few cheap interval tests a lane. The warp then
+// deals its pairs' candidate sub-boxes out 32 at a time, one box test a
+// lane, so a batch of small splats costs a warp one round of box tests or
+// two.
+template <class Boxes>
+__device__ __forceinline__ void stage_batch(const float* raw, int n, float ox,
+                                            float oy, unsigned live,
+                                            const Boxes boxes, int warp,
+                                            int lane, Staged* st) {
+  constexpr int kPairs = kBatch / kWarps;      // pairs a warp stages
+  constexpr int kPerLane = Boxes::kCount / 4;  // interval tests a lane
+  static_assert(kPairs * 4 == 32, "four lanes a pair");
+  const int part = lane & 3;
+  const int k = warp * kPairs + (lane >> 2);
+  const float* f = raw + k * kCols;
+  float mx = 0.0f, my = 0.0f;
+  unsigned cand = 0;
+  if (k < n) {
+    mx = __fsub_rn(f[0], ox);
+    my = __fsub_rn(f[1], oy);
+    float hx, hy;
+    reach_extents(f[2], f[3], f[4], f[5], &hx, &hy);
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int b = part * kPerLane + i;
+      const float x_lo = (float)boxes.x(b) - mx;
+      const float y_lo = (float)boxes.y(b) - my;
+      if (x_lo <= hx && x_lo + (float)(kBoxW - 1) >= -hx && y_lo <= hy &&
+          y_lo + (float)(kBoxH - 1) >= -hy)
+        cand |= 1u << b;
+    }
+  }
+  cand |= __shfl_xor_sync(kFull, cand, 1);
+  cand |= __shfl_xor_sync(kFull, cand, 2);
+  cand &= live;
+  if (part == 0 && k < n) {
+    st->geo[k] = make_float4(mx, my, -0.5f * f[2], f[5]);
+    st->col[k] = make_float4(f[3], -0.5f * f[4], f[6], f[7]);
+    st->blue[k] = f[8];
+    st->mask[k] = 0;
+  }
+  __syncwarp();
+
+  // start[p]: candidates of the warp's pairs before pair p.
+  const int count = __popc(cand);
+  int start[kPairs + 1];
+  start[0] = 0;
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p)
+    start[p + 1] = start[p] + __shfl_sync(kFull, count, 4 * p);
+  for (int base = 0; base < start[kPairs]; base += 32) {
+    const int idx = base + lane;
+    int p = 0, first = 0;        // the pair that holds candidate idx
+#pragma unroll
+    for (int t = 1; t < kPairs; ++t)
+      if (idx >= start[t]) {
+        p = t;
+        first = start[t];
+      }
+    const unsigned of_pair = __shfl_sync(kFull, cand, 4 * p);
+    if (idx >= start[kPairs]) continue;
+    const int b = __fns(of_pair, 0, idx - first + 1);
+    const int kp = warp * kPairs + p;
+    const float* g = raw + kp * kCols;
+    const float x_lo = __fsub_rn((float)boxes.x(b), __fsub_rn(g[0], ox));
+    const float y_lo = __fsub_rn((float)boxes.y(b), __fsub_rn(g[1], oy));
+    if (gs_cull::box_alive(g[2], g[3], g[4], g[5], x_lo,
+                           __fadd_rn(x_lo, (float)(kBoxW - 1)), y_lo,
+                           __fadd_rn(y_lo, (float)(kBoxH - 1))))
+      atomicOr(&st->mask[kp], 1u << b);
+  }
 }
 
 // alpha_raw = op * exp(power) of a staged pair at pixel (px, py), with the
@@ -156,56 +339,116 @@ __device__ __forceinline__ float pair_alpha_raw(const float4 a, const float4 b,
   return __fmul_rn(a.w, *G);
 }
 
-__global__ void __launch_bounds__(kThreads) composite_forward_kernel(
+// Bit q: sub-box q of this warp still has a running pixel (K3; bit q of
+// `done` says the thread's pixel q has stopped).
+__device__ __forceinline__ unsigned running_boxes(unsigned done) {
+  unsigned running = 0;
+#pragma unroll
+  for (int q = 0; q < kSub; ++q)
+    if (__ballot_sync(kFull, !(done >> q & 1))) running |= 1u << q;
+  return running;
+}
+
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+composite_forward_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ counts, const float* __restrict__ feat9,
-    int width, int height, int gx, int chunk, float alpha_min,
-    float alpha_clamp, float t_eps, float* __restrict__ color,
-    float* __restrict__ final_T) {
-  extern __shared__ float4 smem[];
-  float4* s_geo = smem;           // tile-local mean x, y; -0.5*ca; opacity
-  float4* s_col = smem + chunk;   // cb; -0.5*cc; r; g
-  float* s_blue = reinterpret_cast<float*>(smem + 2 * chunk);
+    int width, int height, int gx, float alpha_min, float alpha_clamp,
+    float t_eps, float* __restrict__ color, float* __restrict__ final_T) {
+  __shared__ float s_raw[2][kBatch * kCols];   // gathered feat9 rows
+  __shared__ Staged s_st[2];
+  __shared__ unsigned s_run[2][kWarps];        // has the warp a running pixel
 
-  const int t = blockIdx.x;
+  const int t = blockIdx.x >> 2, quarter = blockIdx.x & 3;
+  const int start = starts[t], count = counts[t];
   const int tx = t % gx, ty = t / gx;
-  const int lx = threadIdx.x % kTile, ly = threadIdx.x / kTile;
+  const int j = threadIdx.x;
+  const int lane = j & 31, warp = j >> 5;
+  const float ox = (float)(tx * kTile), oy = (float)(ty * kTile);
+  const QuarterBoxes boxes{(quarter & 1) * kQuarter, (quarter >> 1) * kQuarter};
+
+  // This thread's pixel: lane's place in the warp's sub-box.
+  const int lx = boxes.x(warp) + (lane & (kBoxW - 1));
+  const int ly = boxes.y(warp) + lane / kBoxW;
   const int x = tx * kTile + lx, y = ty * kTile + ly;
   const bool in_image = x < width && y < height;
   const float px = (float)lx, py = (float)ly;
-  const float ox = (float)(tx * kTile), oy = (float)(ty * kTile);
-  const int start = starts[t], count = counts[t];
-
   float T = 1.0f, c_r = 0.0f, c_g = 0.0f, c_b = 0.0f;
   bool done = !in_image;
+  bool running = __any_sync(kFull, !done);     // of the warp's pixels
 
-  for (int base = 0; base < count; base += chunk) {
-    // Also the barrier that keeps the previous batch alive until all read it.
-    if (__syncthreads_count(done) == kThreads) break;
-    const int j = threadIdx.x;
-    if (j < chunk && base + j < count)
-      stage_pair(feat9 + (int64_t)ids[start + base + j] * kCols, ox, oy,
-                 &s_geo[j], &s_col[j], &s_blue[j]);
+  if (count > 0) {
+    // The block's sub-boxes that still have a running pixel, from the flags
+    // the warps left in s_run[buf] before the last barrier.
+    auto live_boxes = [&](int buf) {
+      unsigned live = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) live |= s_run[buf][w] << w;
+      return live;
+    };
+    // id_next: the gaussian whose row this thread gathers next (-1 past the
+    // tile's last pair), one batch ahead of the rows in flight.
+    const int gp = j >> 2;
+    auto id_at = [&](int first) {
+      return first + gp < count ? ids[start + first + gp] : -1;
+    };
+    gather_row(feat9, id_at(0), s_raw[0], j);
+    int id_next = id_at(kBatch);
+    if (lane == 0) s_run[1][warp] = running;
+    cp_async_wait_all();
     __syncthreads();
-    if (done) continue;
-    const int n = min(chunk, count - base);
-    for (int k = 0; k < n; ++k) {
-      const float4 a = s_geo[k];
-      const float4 b = s_col[k];
-      float dx, dy, G;
-      const float alpha_raw = pair_alpha_raw(a, b, px, py, &dx, &dy, &G);
-      if (!(alpha_raw >= alpha_min)) continue;
-      const float alpha = fminf(alpha_clamp, alpha_raw);
-      const float test_T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
-      if (test_T < t_eps) {
-        done = true;
-        break;
+    gather_row(feat9, id_next, s_raw[1], j);
+    id_next = id_at(2 * kBatch);
+    stage_batch(s_raw[0], min(kBatch, count), ox, oy, live_boxes(1), boxes,
+                warp, lane, &s_st[0]);
+    if (lane == 0) s_run[0][warp] = running;
+
+    for (int base = 0, buf = 0; base < count; base += kBatch, buf ^= 1) {
+      cp_async_wait_all();
+      // Past this barrier batch `base` is staged, the rows of the next one
+      // have landed, and nobody reads the buffers of the one before.
+      __syncthreads();
+      const unsigned live = live_boxes(buf);
+      if (live == 0) break;          // every pixel of the quarter is done
+      const int n = min(kBatch, count - base);
+      const int n_next = min(kBatch, count - base - kBatch);
+      gather_row(feat9, id_next, s_raw[buf], j);
+      id_next = id_at(base + 3 * kBatch);
+      if (n_next > 0)
+        stage_batch(s_raw[buf ^ 1], n_next, ox, oy, live, boxes, warp, lane,
+                    &s_st[buf ^ 1]);
+
+      // Walk: 32 masks at a time become this warp's list of pairs. The
+      // pixel's update is branch-free (no divergence inside the warp) and
+      // is the reference's separately rounded sequence.
+      const Staged& st = s_st[buf];
+      for (int c0 = 0; c0 < n && running; c0 += 32) {
+        const int kl = c0 + lane;
+        unsigned todo =
+            __ballot_sync(kFull, kl < n && (st.mask[kl] >> warp & 1));
+        while (todo) {
+          const int k = c0 + __ffs(todo) - 1;
+          todo &= todo - 1;
+          const float4 a = st.geo[k];
+          const float4 b = st.col[k];
+          const float blue = st.blue[k];
+          float dx, dy, G;
+          const float alpha_raw = pair_alpha_raw(a, b, px, py, &dx, &dy, &G);
+          const bool lands = !done && alpha_raw >= alpha_min;
+          const float alpha = fminf(alpha_clamp, alpha_raw);
+          const float test_T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
+          const bool stop = lands && test_T < t_eps;
+          const bool accept = lands && !stop;
+          done |= stop;
+          const float w = __fmul_rn(alpha, T);
+          c_r = accept ? __fadd_rn(c_r, __fmul_rn(b.z, w)) : c_r;
+          c_g = accept ? __fadd_rn(c_g, __fmul_rn(b.w, w)) : c_g;
+          c_b = accept ? __fadd_rn(c_b, __fmul_rn(blue, w)) : c_b;
+          T = accept ? test_T : T;
+        }
+        running = __any_sync(kFull, !done);
       }
-      const float w = __fmul_rn(alpha, T);
-      c_r = __fadd_rn(c_r, __fmul_rn(b.z, w));
-      c_g = __fadd_rn(c_g, __fmul_rn(b.w, w));
-      c_b = __fadd_rn(c_b, __fmul_rn(s_blue[k], w));
-      T = test_T;
+      if (lane == 0) s_run[buf ^ 1][warp] = running;
     }
   }
 
@@ -217,31 +460,6 @@ __global__ void __launch_bounds__(kThreads) composite_forward_kernel(
     color[2 * hw + p] = c_b;
     final_T[p] = T;
   }
-}
-
-// Tile-local origin of the sub-box with mask bit b = warp * kSub + q: warp
-// w owns the 16x8 region at ((w & 1) * 16, (w / 2) * 8), whose sub-box q lies
-// at ((q & 1) * 8, (q / 2) * 4) inside it. A warp's sub-boxes are neighbours,
-// so that a small splat meets one warp or two.
-__device__ __forceinline__ int sub_box_pos(int b) {   // row-major, 4 across
-  const int w = b / kSub, q = b % kSub;
-  return ((w >> 1) * 2 + (q >> 1)) * 4 + (w & 1) * 2 + (q & 1);
-}
-__device__ __forceinline__ int sub_box_x(int b) {
-  return (sub_box_pos(b) & 3) * kBoxW;
-}
-__device__ __forceinline__ int sub_box_y(int b) {
-  return (sub_box_pos(b) >> 2) * kBoxH;
-}
-
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // Zeroes the rows [0, min(*num_pairs, capacity)) of dpairs (16-byte aligned).
@@ -258,7 +476,7 @@ __global__ void __launch_bounds__(256) composite_backward_fill_kernel(
   if (tid < (n_float & 3)) dpairs[(n_vec << 2) + tid] = 0.0f;
 }
 
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 composite_backward_kernel(
     const int32_t* __restrict__ ids, const int64_t* __restrict__ order,
     const int32_t* __restrict__ starts, const int32_t* __restrict__ counts,
@@ -268,12 +486,10 @@ composite_backward_kernel(
     float alpha_min, float alpha_clamp, float t_eps,
     float* __restrict__ dpairs) {
   __shared__ float s_raw[kBatch * kCols];      // gathered feat9 rows
-  __shared__ float4 s_geo[kBatch];
-  __shared__ float4 s_col[kBatch];
-  __shared__ float s_blue[kBatch];
-  __shared__ unsigned s_mask[kBatch];          // sub-boxes a pair can reach
-  __shared__ unsigned s_acc[kBwdWarps][kMaskWords];  // pairs a warp accepted
-  __shared__ float s_part[kBwdWarps * kBatch * kCols];   // [warp][pair][col]
+  __shared__ Staged s_st;
+  __shared__ unsigned s_acc[kWarps][kMaskWords];  // pairs a warp accepted
+  __shared__ unsigned s_run[kWarps];           // each warp's running_boxes
+  __shared__ float s_part[kWarps * kBatch * kCols];   // [warp][pair][col]
 
   const int t = blockIdx.x;
   const int start = starts[t], count = counts[t];
@@ -310,62 +526,33 @@ composite_backward_kernel(
     }
   }
 
-  // Gather: thread j copies floats {j & 3, (j & 3) + 4, 8 if j & 3 == 0} of
-  // pair j / 4 of a batch. id_next is that pair's gaussian in the batch
+  // Gather (gather_row): id_next is the gaussian of pair j / 4 in the batch
   // after the one being staged (-1 past the tile's last pair).
-  const int gp = j >> 2, gpart = j & 3;
+  const int gp = j >> 2;
   int id_next = gp < count ? ids[start + gp] : -1;
-  auto gather = [&]() {
-    if (id_next < 0) return;
-    const float* src = feat9 + (int64_t)id_next * kCols;
-    float* dst = s_raw + gp * kCols;
-    cp_async_f32(dst + gpart, src + gpart);
-    cp_async_f32(dst + gpart + 4, src + gpart + 4);
-    if (gpart == 0) cp_async_f32(dst + 8, src + 8);
-  };
-  gather();
+  gather_row(feat9, id_next, s_raw, j);
   id_next = kBatch + gp < count ? ids[start + kBatch + gp] : -1;
   cp_async_wait_all();
   __syncthreads();
 
+  unsigned live = kFull;   // sub-boxes of the tile with a running pixel
   for (int base = 0; base < count; base += kBatch) {
     const int n = min(kBatch, count - base);
 
-    // Stage this warp's share of the batch; lane b tests sub-box b.
-    for (int k = warp; k < n; k += kBwdWarps) {
-      const float* f = s_raw + k * kCols;
-      float4 geo, col;
-      float blue;
-      stage_pair(f, ox, oy, &geo, &col, &blue);
-      const float x_lo = __fsub_rn((float)sub_box_x(lane), geo.x);
-      const float y_lo = __fsub_rn((float)sub_box_y(lane), geo.y);
-      const unsigned m = __ballot_sync(
-          kFull, gs_cull::box_alive(f[2], f[3], f[4], f[5], x_lo,
-                                    __fadd_rn(x_lo, (float)(kBoxW - 1)), y_lo,
-                                    __fadd_rn(y_lo, (float)(kBoxH - 1))));
-      if (lane == 0) {
-        s_geo[k] = geo;
-        s_col[k] = col;
-        s_blue[k] = blue;
-        s_mask[k] = m;
-      }
-    }
+    stage_batch(s_raw, n, ox, oy, live, TileBoxes{}, warp, lane, &s_st);
     __syncthreads();
 
     // The raw rows are consumed: the next batch's land during the walk.
-    gather();
+    gather_row(feat9, id_next, s_raw, j);
     id_next = base + 2 * kBatch + gp < count
                   ? ids[start + base + 2 * kBatch + gp] : -1;
 
     // Walk: 32 masks at a time become this warp's list of pairs.
     for (int c0 = 0; c0 < n; c0 += 32) {
-      unsigned running = 0;        // sub-boxes with a pixel still running
-#pragma unroll
-      for (int q = 0; q < kSub; ++q)
-        if (__ballot_sync(kFull, !(done >> q & 1))) running |= 1u << q;
+      const unsigned running = running_boxes(done);
       const int kl = c0 + lane;
       const unsigned mine =
-          kl < n ? (s_mask[kl] >> (warp * kSub)) & running : 0u;
+          kl < n ? (s_st.mask[kl] >> (warp * kSub)) & running : 0u;
       unsigned todo = __ballot_sync(kFull, mine != 0);
       unsigned accepted_pairs = 0;
       while (todo) {
@@ -373,9 +560,9 @@ composite_backward_kernel(
         todo &= todo - 1;
         const unsigned boxes = __shfl_sync(kFull, mine, kk);
         const int k = c0 + kk;
-        const float4 a = s_geo[k];
-        const float4 b = s_col[k];
-        const float blue = s_blue[k];
+        const float4 a = s_st.geo[k];
+        const float4 b = s_st.col[k];
+        const float blue = s_st.blue[k];
         float v[kCols];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) v[c] = 0.0f;
@@ -459,16 +646,23 @@ composite_backward_kernel(
       if (lane == 0) s_acc[warp][c0 >> 5] = accepted_pairs;
     }
 
+    const unsigned running = running_boxes(done);
+    if (lane == 0) s_run[warp] = running;
     cp_async_wait_all();
-    // The partials and the next batch's rows are visible past this barrier.
-    const bool all_done = __syncthreads_and(done == (1u << kSub) - 1);
+    // The partials, the next batch's rows and every warp's running boxes
+    // are visible past this barrier (s_run is written again only past the
+    // next batch's staging barrier).
+    __syncthreads();
+    live = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) live |= s_run[w] << (w * kSub);
 
     // Cross-warp sum, ascending warp order, of the warps that accepted.
-    for (int i = j; i < n * kCols; i += kBwdThreads) {
+    for (int i = j; i < n * kCols; i += kThreads) {
       const int k = i / kCols;
       unsigned warps = 0;
 #pragma unroll
-      for (int w = 0; w < kBwdWarps; ++w)
+      for (int w = 0; w < kWarps; ++w)
         warps |= (s_acc[w][k >> 5] >> (k & 31) & 1u) << w;
       if (warps == 0) continue;
       float s = 0.0f;
@@ -479,7 +673,7 @@ composite_backward_kernel(
       }
       dpairs[order[start + base + k] * kCols + (i - k * kCols)] = s;
     }
-    if (all_done) break;
+    if (live == 0) break;          // every pixel of the tile is done
   }
 }
 
@@ -488,15 +682,14 @@ composite_backward_kernel(
 extern "C" int gs_composite_forward(const void* ids, const void* starts,
                                     const void* counts, const void* feat9,
                                     int width, int height, int gx, int gy,
-                                    int chunk, float alpha_min,
-                                    float alpha_clamp, float t_eps,
-                                    void* color, void* final_T, void* stream) {
-  if (chunk < 1 || chunk > kThreads) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)chunk * (2 * sizeof(float4) + sizeof(float));
-  composite_forward_kernel<<<gx * gy, kThreads, smem, (cudaStream_t)stream>>>(
+                                    float alpha_min, float alpha_clamp,
+                                    float t_eps, void* color, void* final_T,
+                                    void* stream) {
+  composite_forward_kernel<<<4 * gx * gy, kThreads, 0,
+                             (cudaStream_t)stream>>>(
       (const int32_t*)ids, (const int32_t*)starts, (const int32_t*)counts,
-      (const float*)feat9, width, height, gx, chunk, alpha_min, alpha_clamp,
-      t_eps, (float*)color, (float*)final_T);
+      (const float*)feat9, width, height, gx, alpha_min, alpha_clamp, t_eps,
+      (float*)color, (float*)final_T);
   return (int)cudaGetLastError();
 }
 
@@ -511,7 +704,7 @@ extern "C" int gs_composite_backward(
     void* dpairs, void* stream) {
   composite_backward_fill_kernel<<<528, 256, 0, (cudaStream_t)stream>>>(
       (const int64_t*)num_pairs, (int64_t)capacity, (float*)dpairs);
-  composite_backward_kernel<<<gx * gy, kBwdThreads, 0,
+  composite_backward_kernel<<<gx * gy, kThreads, 0,
                               (cudaStream_t)stream>>>(
       (const int32_t*)ids, (const int64_t*)order, (const int32_t*)starts,
       (const int32_t*)counts, (const float*)feat9, (const float*)color,
@@ -520,11 +713,21 @@ extern "C" int gs_composite_backward(
   return (int)cudaGetLastError();
 }
 
-// Blocks of K3 that the occupancy API fits on one SM (negative: the CUDA
-// error, negated).
-extern "C" int gs_composite_backward_blocks_per_sm() {
-  int blocks = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, composite_backward_kernel, kBwdThreads, 0);
-  return err == cudaSuccess ? blocks : -(int)err;
+// out[0..2] = registers per thread, static shared memory bytes and the
+// blocks the occupancy API fits on one SM, of K2 (which = 2) or K3 (3).
+// Returns the CUDA error.
+extern "C" int gs_composite_kernel_info(int which, int* out) {
+  const void* fn = which == 2 ? (const void*)composite_forward_kernel
+                              : (const void*)composite_backward_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  err = which == 2
+            ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &out[2], composite_forward_kernel, kThreads, 0)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &out[2], composite_backward_kernel, kThreads, 0);
+  return (int)err;
 }

@@ -1,6 +1,6 @@
-// The alpha-cut box test shared by K1 (emit.cu: a pair's whole tile) and K3
-// (composite.cu: each 8x4 sub-box of the tile): can a gaussian reach the
-// compositors' 1/255 alpha cut anywhere in a box of pixel centres?
+// The alpha-cut box test shared by K1 (emit.cu: a pair's whole tile) and by
+// K2 and K3 (composite.cu: each 8x4 sub-box of the tile): can a gaussian
+// reach the compositors' 1/255 alpha cut anywhere in a box of pixel centres?
 //
 // The box is [x_lo, x_hi] x [y_lo, y_hi] in pixel-minus-mean coordinates.
 // The conic quadratic q = 0.5*(ca*dx^2 + cc*dy^2) + cb*dx*dy is convex, so

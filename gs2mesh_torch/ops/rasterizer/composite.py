@@ -6,9 +6,12 @@
 pre-background color (3, H, W) and final_T (H, W). On CUDA tensors its
 forward launches K2 (``composite_cuda``) and its backward launches K3
 (``composite_backward_cuda``, per-pair gradients written at their emission
-slots; a pair is evaluated only in the 8x4 sub-boxes of its tile where it
-can reach the alpha cut) and K4 (``segment_sum_cuda``, each gaussian's
-contiguous slot segment summed). On CPU tensors it runs the plain versions
+slots) and K4 (``segment_sum_cuda``, each gaussian's contiguous slot segment
+summed). K2 runs one 256-thread block per 16x16 quarter of a 32x32 tile (a
+thread a pixel), K3 one per tile (a thread 4 pixels); they share their
+staging: a pair is evaluated only in the 8x4 sub-boxes where it can reach
+the alpha cut (``tile_render.pair_box_mask_plain``), which changes none of
+a pixel's decisions. On CPU tensors it runs the plain versions
 (``tile_render.composite_plain``, ``composite_backward_plain`` and
 ``emit.segment_sum_plain``). K2 streams every pair of every tile (no
 per-tile cap, so it never sets ``tile_overflow``).
@@ -33,7 +36,7 @@ from gs2mesh_torch.ops.rasterizer.tile_render import (composite_backward_plain,
 @functools.lru_cache(maxsize=None)
 def _k2():
     fn = _build.library("composite").gs_composite_forward
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
@@ -49,14 +52,11 @@ def _k3():
     return fn
 
 
-def backward_blocks_per_sm() -> int:
-    """Blocks of K3 that fit on one SM of the current card (occupancy API)."""
-    fn = _build.library("composite").gs_composite_backward_blocks_per_sm
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    blocks = fn()
-    if blocks < 0:
-        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks}")
-    return blocks
+def kernel_info(kernel: str) -> dict:
+    """Registers per thread, static shared memory bytes and blocks per SM
+    (occupancy API) of ``"K2"`` or ``"K3"`` on the current card."""
+    fn = _build.library("composite").gs_composite_kernel_info
+    return _build.kernel_info(fn, {"K2": 2, "K3": 3}[kernel])
 
 
 def _check_tiles(ids_sorted, tile_starts, tile_counts, feat9, width, height,
@@ -83,7 +83,7 @@ def composite_cuda(ids_sorted, tile_starts, tile_counts, feat9, width: int,
     final_T = torch.empty((height, width), dtype=torch.float32, device=dev)
     err = _k2()(ids_sorted.data_ptr(), tile_starts.data_ptr(),
                 tile_counts.data_ptr(), feat9.data_ptr(), width, height, gx,
-                gy, cfg.chunk, cfg.alpha_min, cfg.alpha_clamp,
+                gy, cfg.alpha_min, cfg.alpha_clamp,
                 cfg.transmittance_eps, color.data_ptr(), final_T.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -18,11 +18,11 @@ class RasterizerConfig:
     are not ported.
     """
 
-    tile: int = 32                  # pixel tile edge; the CUDA compositor
-                                    # runs one block per tile (K2 1024
-                                    # threads, K3 256)
-    chunk: int = 128                # pairs staged in shared memory per
-                                    # batch by the CUDA compositor
+    tile: int = 32                  # pixel tile edge; the CUDA compositors
+                                    # run 256-thread blocks (K2 one per 16x16
+                                    # quarter of a tile, a thread a pixel; K3
+                                    # one per tile, a thread 4 pixels) and
+                                    # stage 64 pairs per batch
     pair_capacity: int = 1 << 20    # max (tile, gaussian) pairs per frame
     # Numerical-semantics constants (identical to the CUDA reference):
     alpha_clamp: float = 0.99       # max per-gaussian alpha (forward.cu:346)

@@ -81,7 +81,7 @@ def box_alive_plain(ca, cb, cc, op, x_lo, x_hi, y_lo, y_hi) -> torch.Tensor:
     box [x_lo, x_hi] x [y_lo, y_hi] of pixel-minus-mean offsets? The minimum
     of the convex conic quadratic over the box is 0 if the mean is inside,
     else it lies on an edge. Broadcasts; the same arithmetic as
-    ``csrc/cull.cuh::box_alive`` (K1's cull and K3's sub-box mask)."""
+    ``csrc/cull.cuh::box_alive`` (K1's cull, K2's and K3's sub-box mask)."""
     def qval(dx, dy):
         return 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
 
@@ -159,7 +159,8 @@ def _k1():
 
 def emission_cuda(feat9, depths, rect, tiles_touched, width: int,
                   height: int, cfg: RasterizerConfig) -> Emission:
-    """Kernel K1: one thread per gaussian writes its pairs' keys and ids."""
+    """Kernel K1: a warp expands a run of 32 gaussians into its contiguous
+    span of slots, 32 consecutive keys and ids per store."""
     N = depths.shape[0]
     K = cfg.pair_capacity
     gx, gy = cfg.grid_size(width, height)
@@ -171,6 +172,8 @@ def emission_cuda(feat9, depths, rect, tiles_touched, width: int,
                 tiles_touched=(tiles_touched, torch.int32, (N,)))
     if N == 0 or N >= 2 ** 31 or K >= 2 ** 31:
         raise ValueError(f"unsupported sizes N={N}, pair_capacity={K}")
+    if rect.data_ptr() % 16:
+        raise ValueError("rect must be 16-byte aligned")
 
     cum = torch.cumsum(tiles_touched.to(torch.int64), 0)
     offsets = cum - tiles_touched
@@ -192,6 +195,12 @@ def emission_cuda(feat9, depths, rect, tiles_touched, width: int,
 
 
 emission_cuda.launches = 0
+
+
+def emission_kernel_info() -> dict:
+    """K1's registers per thread, static shared memory bytes and blocks per
+    SM (occupancy API) on the current card."""
+    return _build.kernel_info(_build.library("emit").gs_emit_kernel_info)
 
 
 def _check_cuda(**tensors):

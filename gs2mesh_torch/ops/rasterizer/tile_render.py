@@ -15,11 +15,14 @@ batch at a time (the plain version of kernel K3; the counterpart of the
 JAX package's ``render_tiles_xla`` autodiff). Like the reference backward
 (and K3), the gradient does not gate on the 0.99 alpha clamp.
 
-K3 evaluates a pair only in the 8x4-pixel sub-boxes of the tile in which it
-can reach the alpha cut; ``pair_box_mask_plain`` is the plain version of
-that mask (the emission cull's box test at sub-box size), and
-``composite_plain`` can count the evaluations a compositor restricted by
-it makes.
+K2 and K3 evaluate a pair only in the 8x4-pixel sub-boxes of the tile in
+which it can reach the alpha cut; ``pair_box_mask_plain`` is the plain
+version of that mask (the emission cull's box test at sub-box size, asked
+only of the sub-boxes that meet the box around the pair's reach,
+``reach_extents_plain``), and ``composite_plain`` can count the evaluations
+a compositor restricted by it makes. With ``drop_culled=True``
+``composite_plain`` drops every evaluation the mask rejects, as K2 does: its
+outputs must not change by a bit.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ from typing import NamedTuple
 import torch
 
 from gs2mesh_torch.ops.rasterizer.config import RasterizerConfig
-from gs2mesh_torch.ops.rasterizer.emit import box_alive_plain
+from gs2mesh_torch.ops.rasterizer.emit import ALIVE_MIN, box_alive_plain
 
 BATCH_ELEMS = 1 << 24   # (tiles x pairs x pixels) elements per batch
-BOX_W, BOX_H = 8, 4     # K3's sub-box of a tile: one pixel per warp lane
+BOX_W, BOX_H = 8, 4     # K2's and K3's sub-box of a tile: one pixel per
+                        # warp lane
 
 
 class Composited(NamedTuple):
@@ -67,10 +71,17 @@ def pair_rows(feat9: torch.Tensor, ids_sorted: torch.Tensor) -> torch.Tensor:
     return feat9[ids_sorted.to(torch.int64).clamp(0, feat9.shape[0] - 1)]
 
 
-def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
+def _box_of_pixel(tile: int, box_w: int, box_h: int, device) -> torch.Tensor:
+    """(P,) box number (box_mask_local's, row-major) of each tile pixel."""
+    p = torch.arange(tile * tile, device=device)
+    return (p // tile) // box_h * (tile // box_w) + (p % tile) // box_w
+
+
+def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig, keep=None):
     """feat (B, L, 9) tile-local pair rows, valid (B, L); px/py (P,).
-    Returns (C (B, 3, P), T (B, P), evaluated (B, L, P) bool, accepted
-    (B, L, P) bool)."""
+    keep (B, L, P) bool, if given, drops the evaluations it rejects. Returns
+    (C (B, 3, P), T (B, P), evaluated (B, L, P) bool, accepted (B, L, P)
+    bool)."""
     xy_x, xy_y = feat[..., 0, None], feat[..., 1, None]
     ca, cb, cc = feat[..., 2, None], feat[..., 3, None], feat[..., 4, None]
     op = feat[..., 5, None]
@@ -85,6 +96,8 @@ def _composite_tiles(feat, valid, px, py, cfg: RasterizerConfig):
     alpha = _ClampNoGate.apply(alpha_raw, cfg.alpha_clamp)
     passes = (alpha_raw >= torch.tensor(cfg.alpha_min, dtype=torch.float32)) \
         & valid[..., None]
+    if keep is not None:
+        passes = passes & keep
     alpha_eff = torch.where(passes, alpha, 0.0)
 
     log1m = torch.log1p(-alpha_eff)
@@ -150,20 +163,44 @@ def _tile_local(rows, lay: _Layout, sl: slice):
                       rows[..., 2:]], dim=-1)
 
 
+def reach_extents_plain(ca, cb, cc, op):
+    """Half-extents (hx, hy), in pixels about the mean, of the axis-aligned
+    box around the ellipse inside which a gaussian can reach the alpha cut
+    less the cull's 2% margin: q <= L = log(op / ALIVE_MIN) bounds dx^2 by
+    2 L cc / det and dy^2 by 2 L ca / det. Widened by 1% and half a pixel;
+    +inf for a conic that is not positive definite; -inf (no box meets it)
+    where op is under the cut. The same arithmetic as
+    ``csrc/composite.cu::reach_extents``."""
+    f32 = torch.float32
+    L = torch.log(op / torch.tensor(ALIVE_MIN, dtype=f32)) + 1e-3
+    k = 2.0 * L / (ca * cc - cb * cb)
+    inf = torch.tensor(float("inf"), dtype=f32)
+
+    def extent(e):
+        h = torch.where(e >= 0, 1.01 * torch.sqrt(e.clamp_min(0)) + 0.5, inf)
+        return torch.where(L < 0, -inf, h)
+
+    return extent(k * cc), extent(k * ca)
+
+
 def box_mask_local(feat, tile: int, box_w: int = BOX_W,
                    box_h: int = BOX_H) -> torch.Tensor:
     """feat (..., 9) pair rows with TILE-LOCAL means -> (..., boxes) bool:
     whether the pair can reach the alpha cut (with the emission cull's 2%
     margin) in each box_w x box_h box of the tile, boxes numbered row-major.
     The emission cull's test (emit.box_alive_plain) over the box's pixel
-    centres; at one box per tile it is emission's own alive decision."""
+    centres, asked only of the boxes that meet the pair's reach_extents
+    box (which holds every box the test accepts); at one box per tile it is
+    emission's own alive decision."""
     nbx = tile // box_w
     b = torch.arange(nbx * (tile // box_h), device=feat.device)
     x_lo = ((b % nbx) * box_w).to(torch.float32) - feat[..., 0, None]
     y_lo = ((b // nbx) * box_h).to(torch.float32) - feat[..., 1, None]
-    return box_alive_plain(feat[..., 2, None], feat[..., 3, None],
-                           feat[..., 4, None], feat[..., 5, None],
-                           x_lo, x_lo + (box_w - 1), y_lo, y_lo + (box_h - 1))
+    x_hi, y_hi = x_lo + (box_w - 1), y_lo + (box_h - 1)
+    conic_op = [feat[..., i, None] for i in (2, 3, 4, 5)]
+    hx, hy = reach_extents_plain(*conic_op)
+    return ((x_lo <= hx) & (x_hi >= -hx) & (y_lo <= hy) & (y_hi >= -hy)
+            & box_alive_plain(*conic_op, x_lo, x_hi, y_lo, y_hi))
 
 
 def pair_box_mask_plain(pair_feat, tile_starts, tile_counts, width: int,
@@ -207,10 +244,13 @@ def _box_evaluations(evaluated, bits, tile: int, box_w: int, box_h: int):
 
 def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
                     height: int, cfg: RasterizerConfig,
-                    max_per_tile: int = 4096, box_mask=None) -> Composited:
+                    max_per_tile: int = 4096, box_mask=None,
+                    drop_culled: bool = False) -> Composited:
     """pair_feat (K, 9) rows of the sorted slots with GLOBAL means; tile
     ranges (T,). Differentiable w.r.t. pair_feat. With box_mask (K,) int64
-    from pair_box_mask_plain it also counts n_box_evaluated."""
+    from pair_box_mask_plain it also counts n_box_evaluated, and with
+    drop_culled it drops, as kernel K2 does, every evaluation in a sub-box
+    the mask rejects."""
     dev = pair_feat.device
     gx, gy = cfg.grid_size(width, height)
     T, P = gx * gy, cfg.pixels_per_tile
@@ -223,8 +263,13 @@ def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
         sl = slice(b0, min(T, b0 + lay.step))
         idx, valid = _gather(lay, sl, tile_starts, tile_counts,
                              pair_feat.shape[0])
+        keep = None
+        if drop_culled:
+            keep = (box_mask[idx][..., None] >> _box_of_pixel(
+                cfg.tile, BOX_W, BOX_H, dev) & 1).bool()
         C, Tf, evaluated, accepted = _composite_tiles(
-            _tile_local(pair_feat[idx], lay, sl), valid, lay.px, lay.py, cfg)
+            _tile_local(pair_feat[idx], lay, sl), valid, lay.px, lay.py, cfg,
+            keep)
         color.append(C)
         final_T.append(Tf)
         n_eval += (evaluated & lay.in_image[sl, None]).sum()

@@ -25,6 +25,7 @@ from gs2mesh_torch.ops.rasterizer.emit import (build_feat9, emission_cuda,
 from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
 from gs2mesh_torch.ops.rasterizer.tile_render import (composite_backward_plain,
                                                       composite_plain,
+                                                      pair_box_mask_plain,
                                                       pair_rows)
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +79,69 @@ def test_emission_kernel_matches_plain(scene, capacity):
     assert torch.equal(k.keys, p.keys) and torch.equal(k.ids, p.ids)
 
 
+def emission_case(case):
+    """(feat9, depths, rect, tiles_touched, W, H, cfg) on a 20x15 tile grid,
+    CPU tensors: gaussians with no tiles (at run edges, a whole run of them),
+    a splat of more tiles than a warp has lanes and one of more than 256, N
+    not a multiple of a run's 32, a run whose span crosses the capacity, and
+    every pair culled."""
+    rng = np.random.default_rng(11)
+    width, height = 640, 480
+    gx, gy = 20, 15
+    N = {"ragged_n": 77, "wider_than_256": 40}.get(case, 96)
+    x0 = rng.integers(0, gx - 1, N)
+    y0 = rng.integers(0, gy - 1, N)
+    w = np.minimum(rng.integers(1, 4, N), gx - x0)
+    h = np.minimum(rng.integers(1, 4, N), gy - y0)
+    if case == "zero_tile_gaussians":
+        dead = rng.random(N) < 0.5
+        dead[[0, 1, 31, 32, 33, N - 1]] = True      # run edges and a run start
+        dead[40:75] = True                          # a whole run's worth
+        w[dead] = 0
+    elif case == "wider_than_32":
+        x0[5], y0[5], w[5], h[5] = 2, 3, 9, 5       # 45 tiles
+    elif case == "wider_than_256":
+        x0[33], y0[33], w[33], h[33] = 1, 0, 18, 15  # 270 tiles
+    rect = np.stack([x0, y0, x0 + w, y0 + h], 1).astype(np.int32)
+    touched = (w * h).astype(np.int32)
+    touched[w == 0] = 0
+    mean = np.stack([(x0 + w / 2) * 32, (y0 + h / 2) * 32], 1) \
+        + rng.uniform(-8, 8, (N, 2))
+    sigma = rng.uniform(6.0, 30.0, N) * np.maximum(w, 1)
+    op = rng.uniform(0.05, 1.0, N)
+    if case == "all_culled":
+        op = np.full(N, 0.9 / 255)
+    feat9 = np.concatenate([mean, np.stack([1 / sigma ** 2, np.zeros(N),
+                                            1 / sigma ** 2], 1), op[:, None],
+                            rng.uniform(0, 1, (N, 3))], 1).astype(np.float32)
+    total = int(touched.sum())
+    K = total - 19 if case == "straddles_capacity" else total + 45
+    return (torch.from_numpy(feat9),
+            torch.from_numpy(rng.uniform(1, 9, N).astype(np.float32)),
+            torch.from_numpy(rect), torch.from_numpy(touched), width, height,
+            RasterizerConfig(pair_capacity=K))
+
+
+EMISSION_CASES = ["zero_tile_gaussians", "wider_than_32", "wider_than_256",
+                  "ragged_n", "straddles_capacity", "all_culled"]
+
+
+
+@pytest.mark.parametrize("case", EMISSION_CASES)
+def test_emission_kernel_edge_cases(case):
+    """K1's warp expansion bit for bit against emission_plain."""
+    need_cuda()
+    *tensors, width, height, cfg = emission_case(case)
+    a = (*(t.cuda() for t in tensors), width, height, cfg)
+    k, p = emission_cuda(*a), emission_plain(*a)
+    torch.cuda.synchronize()
+    assert int(k.num_pairs) == int(p.num_pairs)
+    assert bool(k.overflow) == bool(p.overflow) == (
+        case == "straddles_capacity")
+    assert torch.equal(k.keys, p.keys) and torch.equal(k.ids, p.ids)
+    assert torch.equal(k.offsets, p.offsets)
+
+
 def test_composite_kernel_matches_plain(scene):
     feat9, prep, cfg = scene
     gx, gy = cfg.grid_size(W, H)
@@ -93,6 +157,48 @@ def test_composite_kernel_matches_plain(scene):
                    (T - ref.final_T).abs().flatten()])
     assert float((d > 2e-5).float().mean()) <= 1e-4
     assert float(d.max()) <= 4e-3
+
+
+FORWARD_SCENES = {"wide": (3000, 0.05, 0), "narrow": (20_000, 0.008, 2),
+                  "sparse": (60, 0.03, 3)}
+
+
+@pytest.mark.parametrize("name", list(FORWARD_SCENES))
+def test_composite_kernel_design_cases(name):
+    """K2 on the ragged 200x136 image (last tile row and column cut): wide
+    splats (tiles of several 64-pair batches with a ragged last one), splats
+    a few pixels wide (the sub-box mask drops most evaluations), and a
+    sparse scene with empty tiles. Two runs give the same bits; the plain
+    compositor agrees within K2's limits, whether or not it drops the
+    evaluations K2 drops."""
+    n, sigma, seed = FORWARD_SCENES[name]
+    feat9, prep, cfg = make_scene(n, sigma, seed=seed)
+    gx, gy = cfg.grid_size(W, H)
+    pairs = sort_pairs(emission_cuda(feat9, prep.depths, prep.rect,
+                                     prep.tiles_touched, W, H, cfg), gx * gy)
+    assert not bool(pairs.overflow)
+    counts = pairs.tile_counts
+    if name == "wide":
+        assert int(counts.max()) > 3 * 64 and bool((counts % 64 != 0).any())
+    if name == "sparse":
+        assert bool((counts == 0).any()) and bool((counts > 0).any())
+    a = (pairs.ids, pairs.tile_starts, pairs.tile_counts, feat9, W, H, cfg)
+    color, T = composite_cuda(*a)
+    color2, T2 = composite_cuda(*a)
+    torch.cuda.synchronize()
+    assert torch.equal(color, color2) and torch.equal(T, T2)
+    rows = pair_rows(feat9, pairs.ids)
+    mpt = max(int(counts.max()), 1)
+    mask = pair_box_mask_plain(rows, pairs.tile_starts, counts, W, H, cfg)
+    for drop in (False, True):
+        ref = composite_plain(rows, pairs.tile_starts, counts, W, H, cfg,
+                              max_per_tile=mpt, box_mask=mask,
+                              drop_culled=drop)
+        d = torch.cat([(color - ref.color).abs().flatten(),
+                       (T - ref.final_T).abs().flatten()])
+        assert float((d > 2e-5).float().mean()) <= 1e-4
+        assert float(d.max()) <= 4e-3
+    assert float(T.min()) < 0.9 and bool(torch.isfinite(color).all())
 
 
 def check_backward_kernels(feat9, prep, cfg):
