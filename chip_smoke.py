@@ -37,6 +37,19 @@ Phases (any failure raises, and the script exits non-zero):
      K3 and K4 timed on that dense render too (2.9M live pairs; K4 beside
      one index_add_), bit-identical across two runs, K4 against the plain
      and the slot-order sums;
+ 5b. the stereo stage on the served views: a seeded DLNR on the card
+     against the CPU at 128x192, 2 iterations, cold and with a flow so
+     negative that the refinement runs (float64 within 1e-8 of the largest
+     |disparity|; float32 with TF32 off within 1e-4 of it or 4x the CPU's
+     own float32 error against float64; each branch printed), its bf16
+     policy against float32 on the card (< 0.15); then Stereo.run() over the
+     4 views at 960x576, 10 iterations, [LR, RL] in one batch, warm start,
+     in float32 and in bf16: per-view wall and forward device ms, K1 and K2
+     twice a view, peak memory, every artifact's dtype and shape and a
+     finite disparity; each run again under torch.profiler for the
+     stereo.* / dlnr.* range breakdown and the device idle share; the
+     forward's convolution and matmul FLOPs and TFLOP/s against the H100's
+     FP32 / TF32 / bf16 peaks;
   6. the training path at full width: 8 target views of the 300k SH-3
      sphere rendered by the port at 960x576 and written as PNGs with a
      binary COLMAP model holding the 300k centres; load_colmap_scene ->
@@ -50,7 +63,7 @@ Phases (any failure raises, and the script exits non-zero):
      (against their plain versions, timed, K2 on its heaviest tile alone)
      and K3 and K4 at the step's shapes beside their plain versions (K4
      also beside one index_add_); all four kernels printed as one JSON
-     "kernels" line;
+     "kernels" line (K1 and K2 with their stereo launches);
   8. last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
@@ -1126,6 +1139,296 @@ def phase_profile(r, n=3):
     report_profile(prof, wall_us, n, "render")
 
 
+# Dense peaks of one H100 SXM (NVIDIA data sheet), for the stereo phase's
+# achieved rate: FP32 outside the tensor cores, TF32 and bf16 tensor cores.
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+STEREO_SMALL = (128, 192)        # phase 5b's card-vs-CPU size (H, W)
+
+
+def stereo_pair(h, w, seed=0, shift=4):
+    """[LR, RL] batch of a smooth seeded texture and its copy shifted by
+    ``shift`` pixels, in [0, 255] (tests/test_torch_stereo_cuda.py uses it
+    too)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w + shift].astype(np.float64)
+    img = np.zeros((h, w + shift, 3))
+    for _ in range(16):
+        f, ph = rng.uniform(0.03, 0.5, 2), rng.uniform(0, 6.3, 3)
+        img += np.sin(f[0] * xx[..., None] + f[1] * yy[..., None] + ph)
+    img = ((img - img.min()) / (img.max() - img.min()) * 255).round()
+    left = img[:, shift:].transpose(2, 0, 1)[None]
+    right = img[:, :w].transpose(2, 0, 1)[None]
+    return (torch.from_numpy(np.concatenate([left, right[..., ::-1]])
+                             .astype(np.float32)),
+            torch.from_numpy(np.concatenate([right, left[..., ::-1]])
+                             .astype(np.float32)))
+
+
+def phase_stereo_checks(model):
+    """DLNR on the card against the CPU at 128x192, 2 iterations, cold and
+    with a flow so negative that the refinement runs: float64 on both within
+    1e-8 of the largest |disparity|; float32 (TF32 off) within 1e-4 of it, or
+    4x the CPU's own float32 error against float64 where that is larger;
+    then the bf16 policy against float32 on the card within 0.15 (the JAX
+    test's limit)."""
+    import copy
+
+    from gs2mesh_torch.stereo import DLNRConfig, dlnr_forward
+    from gs2mesh_torch.stereo.layers import matmul_dtype
+
+    h, w = STEREO_SMALL
+    cfg = DLNRConfig(iters=2)
+    a, b = stereo_pair(h, w)
+    models = {("cpu", torch.float32): copy.deepcopy(model).cpu(),
+              ("cuda", torch.float32): model}
+    models[("cpu", torch.float64)] = copy.deepcopy(
+        models[("cpu", torch.float32)]).double()
+    models[("cuda", torch.float64)] = copy.deepcopy(model).double()
+
+    def run(dev, dtype, flow_init, policy=None):
+        m = models[(dev, dtype)]
+        cast = lambda x: None if x is None else x.to(dev, dtype)  # noqa
+        with torch.inference_mode(), matmul_dtype(policy):
+            _, disp = dlnr_forward(m, cast(a), cast(b), cfg, cast(flow_init))
+        return disp.double().cpu(), m.last_refined
+
+    for what, init in (("cold", None), ("flow_init -40", -40.0)):
+        flow_init = None if init is None else torch.full(
+            (2, 2, h // 4, w // 4), init)
+        exact, ref_cpu = run("cpu", torch.float64, flow_init)
+        card64, ref64 = run("cuda", torch.float64, flow_init)
+        cpu32, _ = run("cpu", torch.float32, flow_init)
+        card32, ref32 = run("cuda", torch.float32, flow_init)
+        scale = float(exact.abs().max())
+        e64 = float((card64 - exact).abs().max())
+        cpu_err = float((cpu32 - exact).abs().max()) / scale
+        limit = max(1e-4, 4 * cpu_err)
+        e32 = float((card32 - cpu32).abs().max())
+        e32x = float((card32 - exact).abs().max())
+        log(f"stereo {what} {h}x{w}: refinement ran on cpu64 / card64 / "
+            f"card32: {ref_cpu} / {ref64} / {ref32}; max |disp| {scale:.4f}; "
+            f"card vs cpu float64 {e64:.3e} px ({e64 / scale:.3e} of max, "
+            f"limit 1e-8); float32 card vs cpu {e32:.3e} px "
+            f"({e32 / scale:.3e}), card vs float64 {e32x / scale:.3e}, cpu "
+            f"vs float64 {cpu_err:.3e}: limit {limit:.3e}")
+        check(ref_cpu is ref64 is ref32 is (init is not None),
+              f"stereo {what}: refinement branch")
+        check(e64 <= 1e-8 * scale, f"stereo {what}: float64 card vs cpu")
+        check(e32 <= limit * scale and e32x <= limit * scale,
+              f"stereo {what}: float32 card vs cpu")
+    d32, _ = run("cuda", torch.float32, None)
+    d16, _ = run("cuda", torch.float32, None, policy=torch.bfloat16)
+    gap = float((d32 - d16).abs().max()) / float(d32.abs().max())
+    log(f"stereo bf16 policy vs float32 on the card, {h}x{w} cold: max |d| / "
+        f"max |disp| {gap:.4f} (limit 0.15)")
+    check(bool(torch.isfinite(d16).all()) and gap < 0.15,
+          "stereo bf16 policy vs float32")
+
+
+def stereo_flops(model, h, w):
+    """Convolution and matmul FLOPs of one [LR, RL] forward at h x w with
+    10 iterations, counted by torch.utils.flop_counter from the operators'
+    shapes as they run (no refinement: a cold forward does not refine)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gs2mesh_torch.stereo import DLNRConfig, dlnr_forward
+
+    a, b = (x.cuda() for x in stereo_pair(h, w))
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        dlnr_forward(model, a, b, DLNRConfig(iters=10))
+    check(model.last_refined is False, "FLOP count forward did not refine")
+    return fc.get_total_flops()
+
+
+def stereo_ranges(prof, n):
+    """Device ms per view of each stereo.* and dlnr.* record_function range
+    (a kernel counts toward the range in which its launching operator
+    started; the ranges do not nest), the rest as "outside"."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name.split(".")[0] in ("stereo", "dlnr"))
+    starts = [r[0] for r in ranges]
+    dev = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        name = ranges[i][2] if i >= 0 and e.time_range.start < ranges[i][1] \
+            else "outside"
+        for k in e.kernels:
+            dev[name] = dev.get(name, 0.0) + k.duration / n / 1e3
+    host = {}
+    for a, b, name in ranges:
+        host[name] = host.get(name, 0.0) + (b - a) / n / 1e3
+    return dev, host
+
+
+def run_stereo_stage(stage, r, policy, what):
+    """One Stereo.run() over the serving views under the matmul policy:
+    per-view wall ms (host clock), DLNR forward device ms (CUDA events),
+    the refinement branch and warm start of each forward, K1 / K2 launches
+    and peak device memory."""
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import emission_cuda
+    from gs2mesh_torch.stereo.layers import matmul_dtype
+
+    marks, fwd = [], []
+    plain_render, plain_forward = r.render_image_pair, stage._forward
+
+    def render_pair(i):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return plain_render(i)
+
+    def forward(b1, b2, flow_init):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_forward(b1, b2, flow_init)
+        end.record()
+        fwd.append((start, end, stage.model.last_refined,
+                    flow_init is not None))
+        return out
+
+    r.render_image_pair, stage._forward = render_pair, forward
+    emission_cuda.launches = composite_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with matmul_dtype(policy):
+            stage.run()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    finally:
+        r.render_image_pair, stage._forward = plain_render, plain_forward
+    launches = {"K1": emission_cuda.launches, "K2": composite_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    walls = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    fwd_ms = [s.elapsed_time(e) for s, e, _, _ in fwd]
+    for i, (wall, ms, (_, _, refined, warm)) in enumerate(zip(walls, fwd_ms,
+                                                              fwd)):
+        log(f"stereo {what} view {i}: wall {wall:.2f} ms, DLNR forward "
+            f"{ms:.2f} device ms, warm start {warm}, refinement ran "
+            f"{refined}")
+    log(f"stereo {what}: launches over {len(walls)} views {launches}; peak "
+        f"device memory {peak / 2 ** 30:.3f} GiB")
+    check(len(walls) == len(r) and len(fwd) == len(r), f"stereo {what}: "
+          f"one forward per view")
+    check([w_ for *_, w_ in fwd] == [False] + [True] * (len(r) - 1),
+          f"stereo {what}: warm start from the second view on")
+    check(launches["K1"] == launches["K2"] == 2 * len(r),
+          f"stereo {what}: K1 / K2 twice a view: {launches}")
+    return walls, fwd_ms, launches, peak
+
+
+def check_stereo_artifacts(r, model_name, what):
+    """Every view's artifact set with the reference's dtypes and shapes and
+    a finite disparity. Returns the LR disparities."""
+    from gs2mesh_torch.core.png import read_png
+
+    c = r.cameras[0]["left"]
+    hw = (c["height"], c["width"])
+    disps = []
+    for i in range(len(r)):
+        out = os.path.join(r.render_folder_name(i), f"out_{model_name}")
+        for name, dtype in (("disparity_LR", np.float32),
+                            ("disparity_RL", np.float32),
+                            ("occlusion_mask", np.bool_),
+                            ("depth", np.float32)):
+            a = np.load(os.path.join(out, f"{name}.npy"))
+            check(a.dtype == dtype and a.shape == hw,
+                  f"stereo {what} view {i} {name}.npy: {a.dtype} {a.shape}")
+            if name.startswith("disparity"):
+                check(bool(np.isfinite(a).all()),
+                      f"stereo {what} view {i} {name}: finite")
+        for name, shape in (("disparity_LR", hw + (3,)),
+                            ("disparity_RL", hw + (3,)),
+                            ("occlusion_mask", hw + (3,)), ("depth", hw),
+                            ("shading", hw)):
+            check(read_png(os.path.join(out, f"{name}.png")).shape == shape,
+                  f"stereo {what} view {i} {name}.png shape")
+        disps.append(np.load(os.path.join(out, "disparity_LR.npy")))
+    return disps
+
+
+def phase_stereo(r):
+    """The stereo stage on the serving phase's renderer: the seeded DLNR
+    held to the CPU (phase_stereo_checks), then Stereo.run() over the 4
+    views at 960x576, 10 iterations, warm start on, in float32 (TF32 off)
+    and in the bf16 policy; then both again under torch.profiler for the
+    range breakdown and the device idle share, and the forward's FLOPs.
+    Returns K1's and K2's launches over the float32 run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs2mesh_torch.pipeline import PipelineArgs, Stereo
+    from gs2mesh_torch.pipeline.stereo_stage import STAGE_RANGES
+    from gs2mesh_torch.stereo import DLNR, init_dlnr_
+    from gs2mesh_torch.stereo.dlnr import FORWARD_STAGES
+    from gs2mesh_torch.stereo.layers import matmul_dtype
+
+    model = init_dlnr_(DLNR(), torch.Generator().manual_seed(0)).eval()
+    model = model.cuda()
+    t0 = time.perf_counter()
+    phase_stereo_checks(model)
+    log(f"stereo checks: {time.perf_counter() - t0:.1f} s")
+
+    c = r.cameras[0]["left"]
+    h, w = c["height"], c["width"]
+    args = PipelineArgs.for_dataset("DTU", colmap_name="smoke")
+    check(args.stereo_warm, "DTU warm-starts")
+    stage = Stereo(r.output_dir_root, r, args, model=model, device="cuda")
+    flops = stereo_flops(model, h, w)
+    log(f"stereo forward at {w}x{h}, [LR, RL], 10 iterations: "
+        f"{flops / 1e12:.4f} TFLOP of convolutions and matmuls "
+        f"(torch.utils.flop_counter)")
+    results = {}
+    for what, policy in (("float32", None), ("bf16", torch.bfloat16)):
+        with matmul_dtype(policy):        # warm-up: the last view alone
+            stage.run(start=len(r) - 1)
+        walls, fwd_ms, launches, peak = run_stereo_stage(stage, r, policy,
+                                                         what)
+        disps = check_stereo_artifacts(r, args.stereo_model, what)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with matmul_dtype(policy):
+                stage.run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = report_profile(prof, wall_us, len(r), "view")
+        dev, host = stereo_ranges(prof, len(r))
+        order = ([f"stereo.{k}" for k in STAGE_RANGES[:2]]
+                 + [f"dlnr.{k}" for k in FORWARD_STAGES]
+                 + [f"stereo.{k}" for k in STAGE_RANGES[2:]] + ["outside"])
+        log(f"stereo {what} ranges, device ms / host ms per view: "
+            + ", ".join(f"{k} {dev.get(k, 0.0):.3f} / {host.get(k, 0.0):.3f}"
+                        for k in order))
+        med = float(np.median(fwd_ms[1:]))
+        peak_key = "bf16" if policy is not None else "fp32"
+        log(f"stereo {what}: view wall median {np.median(walls):.2f} ms, "
+            f"DLNR forward median (warm views) {med:.2f} device ms: "
+            f"{flops / med / 1e9:.2f} TFLOP/s achieved, "
+            f"{100 * flops / med / 1e-3 / PEAK_OPS_PER_S[peak_key]:.2f}% of "
+            f"the {peak_key} peak; bounds at fp32 / tf32 / bf16 peaks "
+            + " / ".join(f"{flops / v * 1e3:.3f}"
+                         for v in PEAK_OPS_PER_S.values()) + " ms")
+        results[what] = dict(walls=walls, fwd_ms=fwd_ms, launches=launches,
+                             peak=peak, busy=busy, disps=disps)
+    gap = max(float(np.abs(a - b).max()) / float(np.abs(a).max())
+              for a, b in zip(results["float32"]["disps"],
+                              results["bf16"]["disps"]))
+    log(f"stereo stage bf16 vs float32 disparity_LR: max |d| / max |disp| "
+        f"{gap:.4f} over {len(r)} views (reported, not checked: warm starts "
+        f"chain the views)")
+    return results["float32"]["launches"]
+
+
+
 def main():
     global SAVE_FORWARD_DIR
     import argparse
@@ -1182,8 +1485,13 @@ def main():
     t_phase = time.perf_counter()
     rows, dense = phase_timings(r, launches)
     phase_profile(r)
-    del r
     log(f"phase timings + profile: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    stereo = phase_stereo(r)
+    for row, key in zip(rows, ("K1", "K2")):
+        row["launches_stereo"] = stereo[key]
+    del r
+    log(f"phase stereo: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     trainer, step_wall_ms, train_launches = phase_train(work)
     log(f"phase train: {time.perf_counter() - t_phase:.1f} s")

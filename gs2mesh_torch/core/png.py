@@ -1,9 +1,9 @@
 """8-bit PNG files without an image library (zlib + struct).
 
-``write_png`` writes (H, W, 3) uint8 RGB with filter 0 on every row.
-``read_png`` decodes 8-bit RGB and RGBA non-interlaced PNGs (all five row
-filters) and raises ValueError for any other format, so an unsupported
-file never decodes into wrong pixels.
+``write_png`` writes (H, W, 3) uint8 RGB or (H, W) uint8 grayscale with
+filter 0 on every row. ``read_png`` decodes 8-bit grayscale, RGB and RGBA
+non-interlaced PNGs (all five row filters) and raises ValueError for any
+other format, so an unsupported file never decodes into wrong pixels.
 """
 
 from __future__ import annotations
@@ -14,15 +14,18 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}          # PNG color type -> channels (RGB, RGBA)
+# PNG color type -> channels (grayscale, RGB, RGBA)
+_CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG."""
-    h, w, c = img.shape
-    if img.dtype != np.uint8 or c != 3:
-        raise ValueError(f"expected (H, W, 3) uint8, got {img.dtype} "
-                         f"{img.shape}")
+    """(H, W, 3) uint8 -> 8-bit RGB PNG; (H, W) uint8 -> 8-bit grayscale."""
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and
+                                                       img.shape[2] == 3)):
+        raise ValueError(f"expected (H, W, 3) or (H, W) uint8, got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
                           axis=1)                # filter byte 0 per row
 
@@ -32,7 +35,8 @@ def write_png(path: str, img: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
+                                              0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + chunk(b"IEND", b""))
 
@@ -69,7 +73,8 @@ def _unfilter_row(ft: int, line: bytes, prev: bytearray, bpp: int,
 
 
 def read_png(path: str) -> np.ndarray:
-    """8-bit RGB / RGBA non-interlaced PNG -> (H, W, 3 or 4) uint8."""
+    """8-bit non-interlaced PNG -> (H, W) uint8 for grayscale, (H, W, 3 or
+    4) uint8 for RGB / RGBA."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIGNATURE:
@@ -95,7 +100,8 @@ def read_png(path: str) -> np.ndarray:
     if depth != 8 or ctype not in _CHANNELS or comp or filt or interlace:
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {depth}, color type {ctype}, "
-            f"interlace {interlace}); this reader takes 8-bit RGB or RGBA, "
+            f"interlace {interlace}); this reader takes 8-bit grayscale, RGB "
+            f"or RGBA, "
             f"non-interlaced")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
@@ -109,4 +115,5 @@ def read_png(path: str) -> np.ndarray:
         row = raw[y * (stride + 1):(y + 1) * (stride + 1)]
         prev = _unfilter_row(row[0], row[1:], prev, bpp, path)
         out += prev
-    return np.frombuffer(bytes(out), np.uint8).reshape(h, w, bpp)
+    img = np.frombuffer(bytes(out), np.uint8).reshape(h, w, bpp)
+    return img[..., 0] if ctype == 0 else img

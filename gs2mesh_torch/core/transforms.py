@@ -104,3 +104,16 @@ def rotmat2qvec_wxyz(R: np.ndarray) -> np.ndarray:
 
     q = Rotation.from_matrix(R).as_quat()  # x, y, z, w
     return np.array([q[3], q[0], q[1], q[2]])
+
+
+def get_shading(img: np.ndarray, eps: float) -> np.ndarray:
+    """1/|grad| shading of a (H, W) image in float64 (the stereo stage's
+    diagnostic, reference stereo_utils.py:226-240): 3x3 Sobel gradients as
+    ``cv2.Sobel(img, cv2.CV_64F, 1, 0)`` and ``(.., 0, 1)`` give them, with
+    cv2's default border (BORDER_REFLECT_101, numpy's "reflect")."""
+    p = np.pad(np.asarray(img, np.float64), 1, mode="reflect")
+    smooth_y = p[:-2] + 2.0 * p[1:-1] + p[2:]                # (H, W+2)
+    smooth_x = p[:, :-2] + 2.0 * p[:, 1:-1] + p[:, 2:]       # (H+2, W)
+    gx = smooth_y[:, 2:] - smooth_y[:, :-2]
+    gy = smooth_x[2:] - smooth_x[:-2]
+    return 1.0 / np.sqrt(gx ** 2 + gy ** 2 + eps)

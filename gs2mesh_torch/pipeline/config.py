@@ -1,8 +1,9 @@
-"""Pipeline flags read by the stereo-pair renderer, with the per-dataset
-default tables of the reference ArgParser (gs2mesh_utils/argument_utils.py).
+"""Pipeline flags read by the stereo-pair renderer and the stereo stage, with
+the per-dataset default tables of the reference ArgParser
+(gs2mesh_utils/argument_utils.py).
 
 The port's copy of gs2mesh_tpu pipeline/config.py::PipelineArgs, cut to the
-fields the renderer stage reads; later stages add theirs as they are ported.
+fields the ported stages read; later stages add theirs as they are ported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ DEFAULT_VALUES = {
                      "MobileBrick": "MobileBrick", "MipNerf360": "MipNerf360"},
     "renderer_baseline_percentage": {"custom": 7.0, "DTU": 7.0, "TNT": 7.0,
                                      "MobileBrick": 14.0, "MipNerf360": 7.0},
+    "stereo_warm": {"custom": False, "DTU": True, "TNT": True,
+                    "MobileBrick": True, "MipNerf360": False},
 }
 
 
@@ -34,6 +37,10 @@ class PipelineArgs:
     renderer_scene_360: bool = True
     renderer_save_json: bool = True
     renderer_sort_cameras: bool = False
+    stereo_model: str = "DLNR_Middlebury"
+    stereo_occlusion_threshold: int = 3
+    stereo_warm: bool = False
+    stereo_shading_eps: float = 1e-4
 
     @staticmethod
     def for_dataset(dataset: str, **overrides) -> "PipelineArgs":

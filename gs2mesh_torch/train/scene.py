@@ -90,7 +90,11 @@ def load_colmap_scene(colmap_dir: str, images_dir: str = "images",
         fx = float(cam.params[0])
         fy = float(cam.params[0 if simple else 1])
 
-        pix = read_png(os.path.join(colmap_dir, images_dir, im.name))[..., :3]
+        path = os.path.join(colmap_dir, images_dir, im.name)
+        pix = read_png(path)
+        if pix.ndim != 3:
+            raise ValueError(f"{path}: a training image must be RGB or RGBA")
+        pix = pix[..., :3]
         scale = _resolve_scale(pix.shape[1], resolution)
         w = round(pix.shape[1] / scale)
         h = round(pix.shape[0] / scale)

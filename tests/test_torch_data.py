@@ -112,7 +112,7 @@ def encode_png(img: np.ndarray, filters, ctype=None, depth=8,
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    ctype = ctype if ctype is not None else {3: 2, 4: 6}[c]
+    ctype = ctype if ctype is not None else {1: 0, 3: 2, 4: 6}[c]
     return (b"\x89PNG\r\n\x1a\n"
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
                                          0, interlace))
@@ -120,25 +120,27 @@ def encode_png(img: np.ndarray, filters, ctype=None, depth=8,
             + chunk(b"IEND", b""))
 
 
-@pytest.mark.parametrize("channels", [3, 4])
+@pytest.mark.parametrize("channels", [1, 3, 4])
 def test_png_reader_all_filters(tmp_path, channels):
     rng = np.random.default_rng(channels)
     img = rng.integers(0, 256, size=(11, 13, channels), dtype=np.uint8)
+    want = img[..., 0] if channels == 1 else img      # grayscale is (H, W)
     path = str(tmp_path / "f.png")
     with open(path, "wb") as f:
         f.write(encode_png(img, [0, 1, 2, 3, 4]))
-    np.testing.assert_array_equal(read_png(path), img)
+    np.testing.assert_array_equal(read_png(path), want)
     # A file from another encoder (adaptive filters) decodes as it does.
-    Image.fromarray(img).save(path, optimize=True)
+    Image.fromarray(want).save(path, optimize=True)
     np.testing.assert_array_equal(read_png(path), np.asarray(Image.open(path)))
-    write_png(path, img[..., :3].copy())
-    np.testing.assert_array_equal(read_png(path), img[..., :3])
+    write_png(path, want[..., :3].copy())
+    np.testing.assert_array_equal(read_png(path), want[..., :3])
 
 
 @pytest.mark.parametrize("kind", ["gray", "16bit", "interlaced", "notpng"])
 def test_png_reader_rejects_other_formats(tmp_path, kind):
     img = np.zeros((4, 4, 3), np.uint8)
-    data = {"gray": encode_png(img[..., :1], [0], ctype=0),
+    # "gray": grayscale with alpha (colour type 4); plain grayscale decodes.
+    data = {"gray": encode_png(img[..., :2], [0], ctype=4),
             "16bit": encode_png(img, [0], depth=16),
             "interlaced": encode_png(img, [0], interlace=1),
             "notpng": b"GIF89a" + bytes(40)}[kind]

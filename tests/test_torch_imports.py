@@ -31,3 +31,10 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_port():
     assert len(FILES) > 10
     assert (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for stereo in ("layers", "extractor", "corr", "update", "refinement",
+                   "dlnr", "padder", "convert", "__init__"):
+        assert f"gs2mesh_torch/stereo/{stereo}.py" in names
+    assert {"gs2mesh_torch/pipeline/stereo_stage.py",
+            "gs2mesh_torch/cli/dlnr_eval.py",
+            "gs2mesh_torch/core/colormap.py"} <= names
