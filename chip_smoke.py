@@ -50,6 +50,25 @@ Phases (any failure raises, and the script exits non-zero):
      stereo.* / dlnr.* range breakdown and the device idle share; the
      forward's convolution and matmul FLOPs and TFLOP/s against the H100's
      FP32 / TF32 / bf16 peaks;
+ 5c. TSDF fusion (plain PyTorch on the card; no Pallas kernel on this
+     path): (1) tests/test_fusion.py's sphere (20 views at 128x128, voxel
+     0.02, trunc 0.06, capacity 4096) fused on the card and on the CPU:
+     keys, order and n_blocks equal, weight equal and tsdf and colour within
+     1e-5 on >= 99.99% of the live voxels (the count off and the largest gap
+     printed), mesh face counts within 0.1%, >= 99.9% of the card's
+     vertices within 1e-4 voxel of a CPU vertex; (2) tools/bench_tsdf.py's
+     DTU-scale scene built here (50 views of a 0.5 sphere at 960x576,
+     voxel 2/512, trunc 0.04, capacity 1 << 14): allocate and integrate
+     device ms a view (median of views 2-50), host wall, blocks (no
+     overflow), integrate's byte bound, block-sparse extraction s and
+     device ms, vertices, faces, peak memory; the 98% quantile of
+     | |v| - 0.5 | under 2 voxels, outward normals on > 99%; (3) the TSDF
+     stage on the 4 served views with DTU flags and FullMasker masks (close
+     + erode on): on the random DLNR's depth (blocks, vertices), then on
+     the unit sphere's analytic depth inside a printed baseline band: run,
+     save_mesh, clean_mesh, both PLYs read back, > 1000 cleaned vertices
+     with median | |v| - 1 | under 2 voxels; again under torch.profiler for
+     each tsdf.* range's device and host ms a view and the idle share;
   6. the training path at full width: 8 target views of the 300k SH-3
      sphere rendered by the port at 960x576 and written as PNGs with a
      binary COLMAP model holding the 300k centres; load_colmap_scene ->
@@ -1240,10 +1259,11 @@ def stereo_flops(model, h, w):
     return fc.get_total_flops()
 
 
-def stereo_ranges(prof, n):
-    """Device ms per view of each stereo.* and dlnr.* record_function range
-    (a kernel counts toward the range in which its launching operator
-    started; the ranges do not nest), the rest as "outside"."""
+def range_times(prof, n, prefixes):
+    """Device ms per unit of each record_function range whose name starts
+    with one of ``prefixes`` + "." (a kernel counts toward the range in
+    which its launching operator started; the ranges do not nest), the rest
+    as "outside"; and each range's host ms per unit."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -1251,7 +1271,7 @@ def stereo_ranges(prof, n):
     ranges = sorted((e.time_range.start, e.time_range.end, e.name)
                     for e in prof.events()
                     if e.device_type == DeviceType.CPU
-                    and e.name.split(".")[0] in ("stereo", "dlnr"))
+                    and e.name.split(".")[0] in prefixes)
     starts = [r[0] for r in ranges]
     dev = {}
     for e in prof.events():
@@ -1401,7 +1421,7 @@ def phase_stereo(r):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         busy = report_profile(prof, wall_us, len(r), "view")
-        dev, host = stereo_ranges(prof, len(r))
+        dev, host = range_times(prof, len(r), ("stereo", "dlnr"))
         order = ([f"stereo.{k}" for k in STAGE_RANGES[:2]]
                  + [f"dlnr.{k}" for k in FORWARD_STAGES]
                  + [f"stereo.{k}" for k in STAGE_RANGES[2:]] + ["outside"])
@@ -1427,6 +1447,356 @@ def phase_stereo(r):
         f"chain the views)")
     return results["float32"]["launches"]
 
+
+
+# ---------------------------------------------------------------- phase 5c
+# The reference's TPU run of its bench scene (BENCH_TSDF.json): counts of
+# the scene, printed beside the port's; its times are the TPU's.
+REFERENCE_DTU_COUNTS = {"blocks": 14877, "vertices": 905918}
+
+
+def look_at_extrinsic(eye):
+    """(4, 4) float32 world->camera looking at the origin, +z forward, +y
+    down, z up (tests/test_fusion.py's cameras)."""
+    eye = np.asarray(eye, np.float64)
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, np.array([0.0, 0.0, 1.0]))
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd], axis=0)
+    E = np.eye(4)
+    E[:3, :3] = R
+    E[:3, 3] = -R @ eye
+    return E.astype(np.float32)
+
+
+def sphere_depth(K, E, width, height, radius=1.0):
+    """Analytic projective depth of a sphere at the origin seen through K
+    and world->camera E at integer pixel coordinates (0 where no hit); the
+    depth tests/test_fusion.py fuses."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    u, v = np.meshgrid(np.arange(width), np.arange(height))
+    d = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, np.float64)],
+                 axis=-1)
+    c = E[:3, 3].astype(np.float64)                  # sphere centre in cam
+    b = -2.0 * (d * c).sum(-1)
+    a = (d * d).sum(-1)
+    disc = b * b - 4 * a * ((c * c).sum() - radius ** 2)
+    tt = (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a)
+    return np.where((disc > 0) & (tt > 0), tt * d[..., 2], 0.0).astype(
+        np.float32)
+
+
+def small_sphere_views():
+    """tests/test_fusion.py's fused_sphere: 20 views at 128x128."""
+    W = H = 128
+    K = np.array([[120.0, 0, (W - 1) / 2.0], [0, 120.0, (H - 1) / 2.0],
+                  [0, 0, 1]], np.float32)
+    rng = np.random.default_rng(0)
+    for i in range(20):
+        th = 2 * np.pi * i / 20
+        E = look_at_extrinsic((2.6 * np.cos(th), 2.6 * np.sin(th),
+                               0.8 * np.sin(3 * th + rng.uniform(0, 0.2))))
+        depth = sphere_depth(K, E, W, H)
+        color = np.zeros((H, W, 3), np.float32)
+        color[..., 0] = np.clip(depth / 4.0, 0, 1)
+        color[..., 1] = 0.5
+        yield color, depth, K, E
+
+
+def dtu_sphere_views():
+    """tools/bench_tsdf.py's scene: 50 analytic views of a 0.5-radius
+    sphere at 960x576, f = 800 (built here: that tool runs the JAX package
+    and rewrites BENCH_TSDF.json)."""
+    W, H = 960, 576
+    K = np.array([[800.0, 0, W / 2], [0, 800.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    xs, ys = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    rays = np.stack([(xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1],
+                     np.ones_like(xs)], -1)
+    for i in range(50):
+        a = 2 * math.pi * i / 50
+        eye = np.array([1.6 * math.cos(a), 0.35 * math.sin(3 * a),
+                        1.6 * math.sin(a)])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross([0, 1, 0], fwd)
+        right /= np.linalg.norm(right)
+        Rwc = np.stack([right, np.cross(fwd, right), fwd], 0)
+        E = np.eye(4, dtype=np.float32)
+        E[:3, :3] = Rwc
+        E[:3, 3] = -Rwc @ eye
+        Rcw = E[:3, :3].T
+        org = -Rcw @ E[:3, 3]
+        d = rays @ Rcw.T
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        b = np.sum(d * org, -1)
+        disc = b * b - (np.sum(org * org) - 0.25)
+        t = -b - np.sqrt(np.maximum(disc, 0.0))
+        hit = (disc > 0) & (t > 0)
+        zc = ((org + t[..., None] * d) @ E[:3, :3].T + E[:3, 3])[..., 2]
+        depth = np.where(hit, zc, 0.0).astype(np.float32)
+        color = np.broadcast_to(np.where(hit[..., None], 0.6, 0.0),
+                                (H, W, 3)).astype(np.float32)
+        yield color, depth, K, E
+
+
+def fuse(views, cfg, device, depth_trunc, timing=None):
+    """The stage's per-view loop on ``device``: allocate (doubling the
+    capacity and redoing the allocation on overflow), then integrate. With
+    ``timing`` (a list), each view's CUDA events and host wall go into it."""
+    from gs2mesh_torch import fusion
+
+    vol = fusion.create_volume(cfg, device)
+    for color, depth, K, E in views:
+        color, depth, K, E = (torch.as_tensor(a).to(device)
+                              for a in (color, depth, K, E))
+        if timing is not None:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+        fresh = fusion.allocate(vol, depth, K, E, depth_trunc, cfg)
+        while fresh.overflow:
+            vol, cfg = fusion.grow_volume(vol, cfg)
+            fresh = fusion.allocate(vol, depth, K, E, depth_trunc, cfg)
+        if timing is not None:
+            ev[1].record()
+        vol = fusion.integrate(fresh, color, depth, K, E, depth_trunc, cfg)
+        if timing is not None:
+            ev[2].record()
+            torch.cuda.synchronize()
+            timing.append((ev, (time.perf_counter() - t0) * 1e3,
+                           vol.n_blocks, depth.shape))
+    return vol, cfg
+
+
+def phase_tsdf_card_vs_cpu():
+    """tests/test_fusion.py's sphere (20 views at 128x128, voxel 0.02, trunc
+    0.06, capacity 4096, stride 2) fused on the card and on the CPU. Limits:
+    keys, order and n_blocks equal; weight equal on >= 99.99% of the live
+    voxels, tsdf and colour within 1e-5 there; the meshes' face counts
+    within 0.1%, and >= 99.9% of the card's vertices within 1e-4 voxel of a
+    CPU vertex."""
+    from scipy.spatial import cKDTree
+
+    from gs2mesh_torch import fusion
+
+    cfg = fusion.TSDFConfig(voxel_size=0.02, sdf_trunc=0.06, block_size=8,
+                            block_capacity=4096, alloc_stride=2)
+    views = list(small_sphere_views())
+    card, _ = fuse(views, cfg, "cuda", 4.0)
+    cpu, _ = fuse(views, cfg, "cpu", 4.0)
+    n = cpu.n_blocks
+    check(card.n_blocks == n and not card.overflow, "tsdf card vs cpu: "
+          f"n_blocks {card.n_blocks} vs {n}")
+    check(torch.equal(card.keys.cpu(), cpu.keys)
+          and torch.equal(card.order.cpu(), cpu.order),
+          "tsdf card vs cpu: keys / order")
+    live = n * cfg.block_size ** 3
+    w_off = int((card.weight[:n].cpu() != cpu.weight[:n]).sum())
+    gaps = {k: (getattr(card, k)[:n].cpu() - getattr(cpu, k)[:n]).abs()
+            for k in ("tsdf", "color")}
+    t_off = int((gaps["tsdf"] > 1e-5).sum())
+    c_off = int((gaps["color"].amax(-1) > 1e-5).sum())
+    log(f"tsdf card vs cpu, 20 views 128x128: {n} blocks, {live} live "
+        f"voxels; weight differs on {w_off}, tsdf beyond 1e-5 on {t_off} "
+        f"(max gap {float(gaps['tsdf'].max()):.3e}), colour on {c_off} "
+        f"(max gap {float(gaps['color'].max()):.3e}); limit 1e-4 of the "
+        f"live voxels each")
+    for what, off in (("weight", w_off), ("tsdf", t_off), ("colour", c_off)):
+        check(off <= 1e-4 * live, f"tsdf card vs cpu: {what}")
+    mc = fusion.extract_triangle_mesh(card, cfg)
+    mp = fusion.extract_triangle_mesh(cpu, cfg)
+    dist, _ = cKDTree(mp.vertices).query(mc.vertices)
+    near = float((dist <= 1e-4 * cfg.voxel_size).mean())
+    same = np.array_equal(mc.faces, mp.faces) and \
+        np.array_equal(mc.vertices, mp.vertices)
+    ngap = float(np.abs(mc.vertex_normals - mp.vertex_normals).max()) \
+        if same else float("nan")
+    log(f"tsdf card vs cpu meshes: faces {len(mc.faces)} / {len(mp.faces)}, "
+        f"vertices {len(mc.vertices)} / {len(mp.vertices)}, "
+        f"{100 * near:.4f}% of card vertices within 1e-4 voxel of a CPU "
+        f"vertex (limit 99.9%), faces and vertices bit-equal: {same}, "
+        f"normals max gap {ngap:.3e}")
+    check(abs(len(mc.faces) - len(mp.faces)) <= 1e-3 * len(mp.faces)
+          and len(mp.faces) > 2000, "tsdf card vs cpu: face counts")
+    check(near >= 0.999, "tsdf card vs cpu: vertices")
+
+
+def phase_tsdf_dtu():
+    """tools/bench_tsdf.py's DTU-scale scene on the card: 50 views at
+    960x576, voxel 2/512, trunc 0.04, origin (-1, -1, -1), depth_trunc 3,
+    capacity 1 << 14. Per-view allocate / integrate device ms (CUDA events,
+    median over views 2-50) and host wall, integrate's byte bound, the
+    block-sparse extraction, peak memory; checks the 98% quantile of
+    | |v| - 0.5 | under 2 voxels and outward normals on > 99% of
+    vertices."""
+    from gs2mesh_torch import fusion
+
+    cfg = fusion.TSDFConfig(voxel_size=2.0 / 512, sdf_trunc=0.04,
+                            block_capacity=1 << 14, origin=(-1.0, -1.0, -1.0))
+    t0 = time.perf_counter()
+    views = [tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                   for a in v) for v in dtu_sphere_views()]
+    log(f"tsdf DTU scene: 50 views built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing = []
+    vol, cfg = fuse(views, cfg, "cuda", 3.0, timing)
+    alloc_ms = [ev[0].elapsed_time(ev[1]) for ev, *_ in timing]
+    integ_ms = [ev[1].elapsed_time(ev[2]) for ev, *_ in timing]
+    walls = [w for _, w, _, _ in timing]
+    med = {k: float(np.median(v[1:])) for k, v in (
+        ("allocate", alloc_ms), ("integrate", integ_ms), ("wall", walls))}
+    H, W = timing[-1][3]
+    live = vol.n_blocks * cfg.block_size ** 3
+    nbytes = live * 40 + H * W * 16
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    check(not vol.overflow and cfg.block_capacity == 1 << 14,
+          f"tsdf DTU: no overflow ({cfg.block_capacity})")
+    log(f"tsdf DTU fusion, 50 views 960x576: {vol.n_blocks} blocks "
+        f"(the reference's count {REFERENCE_DTU_COUNTS['blocks']}); median "
+        f"over views 2-50: allocate {med['allocate']:.3f} device ms, "
+        f"integrate {med['integrate']:.3f} device ms, host wall "
+        f"{med['wall']:.3f} ms a view (ranges allocate "
+        f"{min(alloc_ms[1:]):.3f}-{max(alloc_ms[1:]):.3f}, integrate "
+        f"{min(integ_ms[1:]):.3f}-{max(integ_ms[1:]):.3f}, wall "
+        f"{min(walls[1:]):.3f}-{max(walls[1:]):.3f}); first view allocate "
+        f"{alloc_ms[0]:.3f} integrate {integ_ms[0]:.3f} wall "
+        f"{walls[0]:.3f}")
+    log(f"tsdf DTU integrate bytes a view at the last view: {live} live "
+        f"voxels x 40 B (tsdf, weight, colour read and written) + {H}x{W} "
+        f"x 16 B image = {nbytes} B; bound {bound_ms:.4f} ms at 3.35 TB/s "
+        f"against {integ_ms[-1]:.3f} ms measured there")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    mesh = fusion.extract_triangle_mesh(vol, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    ext_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    r = np.linalg.norm(mesh.vertices, axis=1)
+    q98 = float(np.quantile(np.abs(r - 0.5), 0.98))
+    outward = float(((mesh.vertex_normals * mesh.vertices).sum(1) > 0).mean())
+    log(f"tsdf DTU extraction (block-sparse): {ext_s:.3f} s wall, "
+        f"{start.elapsed_time(end):.3f} device ms (CUDA events, device to "
+        f"host copy included); {len(mesh.vertices)} vertices (the "
+        f"reference's count {REFERENCE_DTU_COUNTS['vertices']}), "
+        f"{len(mesh.faces)} faces; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB; 98% quantile of ||v| - 0.5| "
+        f"{q98:.3e} (limit {2 * cfg.voxel_size:.3e}), outward normals "
+        f"{100 * outward:.3f}% (limit 99%)")
+    check(q98 < 2 * cfg.voxel_size, "tsdf DTU: mesh on the sphere")
+    check(outward > 0.99, "tsdf DTU: outward normals")
+
+
+def phase_tsdf_stage(r, model_name):
+    """The TSDF stage on the 4 served views phase_stereo left: DTU flags,
+    FullMasker masks (TSDF_erode_mask on). First on the random-weight
+    DLNR's depth (blocks, vertices, finished), then on the unit sphere's
+    analytic depth with an all-ones occlusion mask: run, save_mesh,
+    clean_mesh, both PLYs read back, > 1000 cleaned vertices with median
+    | |v| - 1 | under 2 voxels; then again under torch.profiler for each
+    tsdf.* range's device and host ms a view and the idle share."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs2mesh_torch.core.ply import read_ply
+    from gs2mesh_torch.pipeline import TSDF, FullMasker, PipelineArgs
+    from gs2mesh_torch.pipeline.tsdf_stage import STAGE_RANGES
+
+    stereo = types.SimpleNamespace(model_name=model_name)
+    FullMasker(r).segment()
+    args = PipelineArgs.for_dataset("DTU", colmap_name="smoke")
+    check(args.TSDF_use_mask and args.TSDF_erode_mask, "DTU masks, eroded")
+    n = len(r)
+
+    def run(stage):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage.run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    stage = TSDF(r, stereo, args, "smoke_dlnr", device="cuda")
+    wall = run(stage)
+    log(f"tsdf stage on the random-weight DLNR depth ({n} views, DTU "
+        f"flags): finished in {wall:.1f} ms, {stage.volume.n_blocks} blocks "
+        f"(capacity {stage.cfg.block_capacity}), "
+        f"{len(stage.mesh.vertices)} vertices")
+
+    b = r.baseline
+    args.TSDF_min_depth_baselines = int(1.5 / b)
+    args.TSDF_max_depth_baselines = int(math.ceil(4.0 / b))
+    band = (args.TSDF_min_depth_baselines * b,
+            args.TSDF_max_depth_baselines * b / args.TSDF_scale)
+    for i, cam in enumerate(r.left_cameras):
+        K = np.array([[cam["fx"], 0, cam["cx"]], [0, cam["fy"], cam["cy"]],
+                      [0, 0, 1.0]])
+        E = np.linalg.inv(np.asarray(cam["extrinsic"], np.float64))
+        depth = sphere_depth(K, E, cam["width"], cam["height"])
+        hit = depth[depth > 0]
+        check(band[0] < hit.min() and hit.max() < band[1],
+              f"tsdf stage view {i}: sphere depth {hit.min():.3f}-"
+              f"{hit.max():.3f} inside the band {band}")
+        out = os.path.join(r.render_folder_name(i), f"out_{model_name}")
+        np.save(os.path.join(out, "depth.npy"), depth)
+        np.save(os.path.join(out, "occlusion_mask.npy"),
+                np.ones(depth.shape, bool))
+    log(f"tsdf stage, analytic unit-sphere depth: baseline {b:.5f}, band "
+        f"[{args.TSDF_min_depth_baselines} x b, "
+        f"{args.TSDF_max_depth_baselines} x b] = [{band[0]:.4f}, "
+        f"{band[1]:.4f}]")
+    stage = TSDF(r, stereo, args, "smoke", device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    wall = run(stage)
+    paths = (stage.save_mesh(), stage.clean_mesh())
+    for path, mesh in zip(paths, (stage.mesh, stage.cleaned)):
+        d = read_ply(path)
+        check(np.array_equal(d.positions, mesh.vertices)
+              and np.array_equal(d.faces, mesh.faces),
+              f"tsdf stage: {os.path.basename(path)} reads back")
+    voxel = args.TSDF_voxel / 512.0
+    rad = np.linalg.norm(stage.cleaned.vertices, axis=1)
+    med = float(np.median(np.abs(rad - 1.0)))
+    log(f"tsdf stage: run {wall:.1f} ms for {n} views, "
+        f"{stage.volume.n_blocks} blocks (capacity "
+        f"{stage.cfg.block_capacity}), mesh "
+        f"{len(stage.mesh.vertices)} vertices / {len(stage.mesh.faces)} "
+        f"faces, cleaned {len(stage.cleaned.vertices)} / "
+        f"{len(stage.cleaned.faces)}; median ||v| - 1| {med:.3e} (limit "
+        f"{2 * voxel:.3e}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    check(len(stage.cleaned.vertices) > 1000, "tsdf stage: cleaned mesh")
+    check(med < 2 * voxel, "tsdf stage: cleaned mesh on the sphere")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage.run()
+        stage.save_mesh()
+        stage.clean_mesh()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, n, "view")
+    dev, host = range_times(prof, n, ("tsdf",))
+    log("tsdf stage ranges, device ms / host ms a view: " + ", ".join(
+        f"{k} {dev.get(k, 0.0):.3f} / {host.get(k, 0.0):.3f}"
+        for k in [f"tsdf.{k}" for k in STAGE_RANGES] + ["outside"]))
+
+
+def phase_tsdf(r, model_name):
+    """Phase 5c: fusion card vs CPU, the DTU-scale scene, the TSDF stage."""
+    for what, fn in (("card vs cpu", phase_tsdf_card_vs_cpu),
+                     ("DTU scale", phase_tsdf_dtu),
+                     ("stage", lambda: phase_tsdf_stage(r, model_name))):
+        t0 = time.perf_counter()
+        fn()
+        log(f"tsdf {what}: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -1490,8 +1860,12 @@ def main():
     stereo = phase_stereo(r)
     for row, key in zip(rows, ("K1", "K2")):
         row["launches_stereo"] = stereo[key]
-    del r
     log(f"phase stereo: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    from gs2mesh_torch.pipeline import PipelineArgs
+    phase_tsdf(r, PipelineArgs.for_dataset("DTU").stereo_model)
+    del r
+    log(f"phase tsdf: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     trainer, step_wall_ms, train_launches = phase_train(work)
     log(f"phase train: {time.perf_counter() - t_phase:.1f} s")

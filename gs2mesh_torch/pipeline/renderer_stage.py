@@ -29,12 +29,17 @@ from gs2mesh_torch.core.ply import read_points_colors
 
 
 def find_nearest_neighbors(current_index, coordinates, visited):
-    """Two nearest unvisited cameras (renderer_utils.py:33-48)."""
+    """The two nearest unvisited cameras (renderer_utils.py:33-48), or the
+    one left. The JAX package also returns a visited camera at distance inf
+    when one is left, which choose_by_close_z can pick, and its sort then
+    never ends; where it ends, it never picked a visited camera, so the two
+    orders agree."""
     distances = np.linalg.norm(coordinates - coordinates[current_index],
                                axis=1)
     distances[visited] = np.inf
     distances[current_index] = np.inf
-    return np.argsort(distances)[:2]
+    nearest = np.argsort(distances)[:2]
+    return nearest[np.isfinite(distances[nearest])]
 
 
 def choose_by_close_z(current_index, candidates, coordinates):

@@ -38,3 +38,7 @@ def test_scan_sees_the_port():
     assert {"gs2mesh_torch/pipeline/stereo_stage.py",
             "gs2mesh_torch/cli/dlnr_eval.py",
             "gs2mesh_torch/core/colormap.py"} <= names
+    for fusion in ("__init__", "tsdf", "marching", "mesh", "convert"):
+        assert f"gs2mesh_torch/fusion/{fusion}.py" in names
+    assert {"gs2mesh_torch/pipeline/tsdf_stage.py",
+            "gs2mesh_torch/pipeline/masker_stage.py"} <= names
