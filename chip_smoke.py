@@ -83,7 +83,28 @@ Phases (any failure raises, and the script exits non-zero):
      and K3 and K4 at the step's shapes beside their plain versions (K4
      also beside one index_add_); all four kernels printed as one JSON
      "kernels" line (K1 and K2 with their stereo launches);
-  8. last line: {"ok": true, "device": {...}}.
+  8. the pipeline (run_single and the DTU driver) on a DTU-layout scan at
+     DTU's resolution: 8 views of the 300k SH-3 sphere rendered by the port
+     at 1554x1162 (the crop dtu_mask_loader makes of DTU's 1600x1200
+     masks) with a text COLMAP model holding the 300k centres, 1600x1200
+     silhouette masks, cameras.npz with the sphere at 80 mm, ObsMask /
+     Plane .mat files and 1M stl points on the sphere. Pass 1:
+     run_single(PipelineArgs.for_dataset("DTU"), stereo_model=<seeded
+     DLNR>, device="cuda"): 40 GS steps from from_point_cloud, the 8
+     stereo pairs, Stereo.run() at 10 iterations in float32, the DTU masks,
+     the TSDF stage; K1-K4 launches as the path implies (40 + 16, 40),
+     every artifact at create_strings' paths, view 0's left.png closer to
+     its target than 0.9x the untrained model's L1. Pass 2: the sphere's
+     analytic depth over each view, then
+     run_pipeline.main(["dtu", "--scans", "24", "--skip_GS",
+     "--skip_rendering", ...]) from the scan's base directory (masks, TSDF,
+     cull_scan, dtu_eval, the CSV row): > 1000 cleaned vertices with median
+     | |v| - 1 | under 2 voxels, d2s, s2d and overall finite and under 2
+     voxels in mm, results.json and the vis_*.ply files. Both passes under
+     torch.profiler: host seconds and device busy by run_single.* /
+     run_DTU.* / dtu_eval.* range, pass 1's peak memory. The kernels line
+     gets each kernel's launches over pass 1 (launches_pipeline);
+  9. last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
@@ -1799,6 +1820,370 @@ def phase_tsdf(r, model_name):
         log(f"tsdf {what}: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 8
+# The whole pipeline on a DTU-layout scan at DTU's resolution: 1554x1162 is
+# the crop dtu_mask_loader makes of DTU's 1600x1200 masks (its principal
+# point DTU_PP). The target renders of the 300k SH-3 sphere need ~11M pairs.
+PIPE = dict(n=300_000, width=1554, height=1162, views=8, iters=40, scan=24,
+            r_mm=80.0, stl_points=1_000_000, obs_res_mm=2.0,
+            target_capacity=1 << 24)
+PIPE_C_MM = np.array([-3.0, 7.0, 560.0])   # the sphere's centre, world mm
+# The trained model's left.png of view 0 must be closer to its target (mean
+# |difference| of the 8-bit images) than this share of the untrained
+# model's render (from_point_cloud's splats, 6x smaller than the target's).
+PIPE_L1_SHARE = 0.9
+DTU_PP = (823.204, 619.071)
+
+
+def dtu_crop(length, centre):
+    """[a, b) of dtu_mask_loader's crop of one mask axis."""
+    half = min(length - centre, centre)
+    return int(centre - half), int(centre + half)
+
+
+def dtu_mask_size(width, height):
+    """The mask size whose DTU crop is width x height, and the crop's
+    origin: (1600, 1200) and (46, 38) for 1554x1162."""
+    def axis(n, centre):
+        for m in range(1, 4096):
+            a, b = dtu_crop(m, centre)
+            if b - a == n:
+                return m, a
+        raise ValueError(f"no DTU mask size crops to {n}")
+
+    (mw, x0), (mh, y0) = axis(width, DTU_PP[0]), axis(height, DTU_PP[1])
+    return (mw, mh), (x0, y0)
+
+
+def pipeline_eyes(n):
+    """n cameras at distance 3 towards the cube's corners (every point of
+    the unit sphere within 55 degrees of a camera's axis)."""
+    corners = [np.array([sx, sy, sz], np.float64)
+               for sx in (1, -1) for sy in (1, -1) for sz in (1, -1)]
+    return [3.0 * c / np.linalg.norm(c) for c in corners[:n]]
+
+
+def write_dtu_scan(base, cfg):
+    """data/DTU/scan<N>/ (8 target PNGs rendered by the port, a text COLMAP
+    model with the 300k centres as points3D, 1600x1200 silhouette masks,
+    cameras.npz with the sphere at r_mm mm) and data/DTU/SampleSet/MVS_Data
+    (ObsMask / Plane .mat files, the stl points on the sphere in mm)."""
+    import scipy.io
+
+    from gs2mesh_torch.core import colmap_io
+    from gs2mesh_torch.core.camera import make_camera
+    from gs2mesh_torch.core.ply import write_ply
+    from gs2mesh_torch.core.png import write_png
+    from gs2mesh_torch.core.transforms import rotmat2qvec_wxyz
+    from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
+
+    W, H, n_views, scan = cfg["width"], cfg["height"], cfg["views"], \
+        cfg["scan"]
+    fx = W / (2 * math.tan(math.radians(30)))
+    (mw, mh), (x0, y0) = dtu_mask_size(W, H)
+    k_full = np.array([[fx, 0, x0 + W / 2], [0, fx, y0 + H / 2], [0, 0, 1]])
+    scan_dir = os.path.join(base, "data", "DTU", f"scan{scan}")
+    sparse = os.path.join(scan_dir, "sparse", "0")
+    for sub in ("images", "mask"):
+        os.makedirs(os.path.join(scan_dir, sub))
+    d = sphere_scene(cfg["n"], seed=0)
+    cams = {1: colmap_io.ColmapCamera(
+        id=1, model="PINHOLE", width=W, height=H,
+        params=np.array([fx, fx, W / 2, H / 2]))}
+    images, mats = {}, {}
+    scale_mat = np.diag([cfg["r_mm"]] * 3 + [1.0])
+    scale_mat[:3, 3] = PIPE_C_MM
+    target = GaussianModel(params_from_numpy(d), 3).raster_inputs()
+    rcfg = RasterizerConfig(pair_capacity=cfg["target_capacity"])
+    pairs = []
+    for i, eye in enumerate(pipeline_eyes(n_views)):
+        R, t = look_at(eye)
+        images[i + 1] = colmap_io.ColmapImage(
+            id=i + 1, qvec=rotmat2qvec_wxyz(R), tvec=t, camera_id=1,
+            name=f"{i:03}.png", xys=np.zeros((0, 2)),
+            point3D_ids=np.zeros((0,), np.int64))
+        with torch.no_grad():
+            out = rasterize(target["means3d"], target["scales"],
+                            target["rotations"], target["opacities"],
+                            target["shs"],
+                            make_camera(R.T, t, 2 * math.atan(W / (2 * fx)),
+                                        2 * math.atan(H / (2 * fx)), W, H),
+                            3, cfg=rcfg)
+        check(not bool(out.overflow), "target render overflow")
+        pairs.append(int(out.num_pairs))
+        img = (out.image.clamp(0, 1) * 255).round().to(torch.uint8)
+        write_png(os.path.join(scan_dir, "images", f"{i:03}.png"),
+                  img.permute(1, 2, 0).cpu().numpy())
+        E = np.eye(4)
+        E[:3, :3], E[:3, 3] = R, t
+        sil = sphere_depth(k_full, E, mw, mh) > 0
+        write_png(os.path.join(scan_dir, "mask", f"{i:03}.png"),
+                  sil.astype(np.uint8) * 255)
+        w2c_mm = np.eye(4)
+        w2c_mm[:3, :3] = R
+        w2c_mm[:3, 3] = cfg["r_mm"] * t - R @ PIPE_C_MM
+        k4 = np.eye(4)
+        k4[:3, :3] = k_full
+        mats[f"world_mat_{i}"] = k4 @ w2c_mm
+        mats[f"scale_mat_{i}"] = scale_mat
+    del target
+    colmap_io.write_model_text(sparse, cams, images, bench_points(d))
+    np.savez(os.path.join(scan_dir, "cameras.npz"), **mats)
+
+    mvs = os.path.join(base, "data", "DTU", "SampleSet", "MVS_Data")
+    os.makedirs(os.path.join(mvs, "ObsMask"))
+    res = cfg["obs_res_mm"]
+    lo = PIPE_C_MM - cfg["r_mm"] - 10.0
+    side = int(math.ceil(2 * (cfg["r_mm"] + 10.0) / res)) + 1
+    scipy.io.savemat(os.path.join(mvs, "ObsMask", f"ObsMask{scan}_10.mat"),
+                     {"ObsMask": np.ones((side,) * 3, np.uint8),
+                      "BB": np.stack([lo, lo + (side - 1) * res]),
+                      "Res": np.array([[res]])})
+    scipy.io.savemat(os.path.join(mvs, "ObsMask", f"Plane{scan}.mat"),
+                     {"P": np.array([[0.0], [0.0], [0.0], [1.0]])})
+    m = cfg["stl_points"]
+    k = np.arange(m) + 0.5
+    phi = np.arccos(1 - 2 * k / m)
+    theta = math.pi * (1 + 5 ** 0.5) * k
+    stl = cfg["r_mm"] * np.stack([np.cos(theta) * np.sin(phi),
+                                  np.sin(theta) * np.sin(phi), np.cos(phi)],
+                                 -1) + PIPE_C_MM
+    write_ply(os.path.join(mvs, "Points", "stl", f"stl{scan:03}_total.ply"),
+              {a: stl[:, j].astype(np.float32) for j, a in enumerate("xyz")})
+    log(f"pipeline scan: {n_views} views at {W}x{H} (fx {fx:.1f}), masks "
+        f"{mw}x{mh} cropped at ({x0}, {y0}), {cfg['n']} points3D; target "
+        f"renders {min(pairs)}-{max(pairs)} pairs (pair_capacity "
+        f"{cfg['target_capacity']}); sphere radius {cfg['r_mm']} mm (DTU's "
+        f"objects ~200-300 mm), {m} stl points, ObsMask {side}^3 at {res} mm")
+    return d, fx
+
+
+def init_model_l1(d, fx, cfg, target_png):
+    """Mean |difference| between view 0's target and the render of the
+    model from_point_cloud makes of the scan's points3D (the untrained
+    model train_gs starts from)."""
+    from gs2mesh_torch.core.camera import make_camera
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.core.sh import C0
+    from gs2mesh_torch.models.gaussians import GaussianModel
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig
+    from gs2mesh_torch.train.trainer import render_model
+
+    W, H = cfg["width"], cfg["height"]
+    rgb = np.clip((d["features_dc"][:, 0] * C0 + 0.5) * 255.0, 0, 255)
+    model = GaussianModel.from_point_cloud(
+        d["xyz"], rgb.round().astype(np.uint8) / 255.0, device="cuda")
+    R, t = look_at(pipeline_eyes(cfg["views"])[0])
+    cam = make_camera(R.T, t, 2 * math.atan(W / (2 * fx)),
+                      2 * math.atan(H / (2 * fx)), W, H)
+    with torch.no_grad():
+        out = render_model(model.params, model.alive, cam, 0,
+                           torch.zeros(3, device="cuda"), RasterizerConfig())
+    img = (out.image.clamp(0, 1) * 255).round().to(torch.uint8)
+    img = img.permute(1, 2, 0).cpu().numpy().astype(np.float64)
+    return float(np.abs(img - read_png(target_png)).mean() / 255.0)
+
+
+def stage_report(prof, wall_s, groups, what):
+    """Host seconds, device-busy seconds and idle share of each
+    record_function range of a pass, from its profile; groups are
+    (prefix, range names) in the order they run."""
+    log(f"{what}: wall {wall_s:.3f} s (profiled); host s / device busy s "
+        f"/ idle share by range:")
+    for prefix, names in groups:
+        dev, host = range_times(prof, 1, (prefix,))
+        for name in (f"{prefix}.{k}" for k in names):
+            if name in host:
+                h, b = host[name] / 1e3, dev.get(name, 0.0) / 1e3
+                log(f"  {name:28s} {h:9.3f} / {b:8.4f} / {1 - b / h:.3f}")
+
+
+def phase_pipeline(work, cfg=None):
+    """Phase 8: run_single on a DTU-layout scan (pass 1: GS training ->
+    stereo pairs -> DLNR -> DTU masks -> TSDF), then the DTU driver through
+    the CLI on the sphere's analytic depth (pass 2: masks -> TSDF ->
+    cull_scan -> dtu_eval -> CSV row). Returns K1-K4's launches over pass
+    1's run_single."""
+    import csv
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gs2mesh_torch.cli import run_pipeline
+    from gs2mesh_torch.cli.drivers import DTU_RANGES
+    from gs2mesh_torch.evals.dtu import EVAL_RANGES
+    from gs2mesh_torch.core.ply import read_ply
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.pipeline import PipelineArgs, Renderer, create_strings
+    from gs2mesh_torch.pipeline import run_single as rs
+    from gs2mesh_torch.stereo import DLNR, init_dlnr_
+
+    cfg = dict(PIPE, **(cfg or {}))
+    base = os.path.join(work, "pipeline")
+    stages = []                       # each pass's TSDF stage, for its counts
+
+    class RecordedTSDF(rs.TSDF):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            stages.append(self)
+
+    def tsdf_counts():
+        st = stages[-1]
+        return (f"{st.volume.n_blocks} blocks (capacity "
+                f"{st.cfg.block_capacity}), mesh {len(st.mesh.vertices)} "
+                f"vertices, cleaned {len(st.cleaned.vertices)}")
+
+    t0 = time.perf_counter()
+    d, fx = write_dtu_scan(base, cfg)
+    scan, iters, n_views = cfg["scan"], cfg["iters"], cfg["views"]
+    name = f"scan{scan}"
+    colmap_dir = os.path.join(base, "data", "DTU", name)
+    l1_init = init_model_l1(d, fx, cfg, os.path.join(colmap_dir, "images",
+                                                     "000.png"))
+    del d
+    log(f"pipeline set-up: {time.perf_counter() - t0:.1f} s")
+
+    # ---- pass 1: the full pipeline through run_single
+    args = PipelineArgs.for_dataset("DTU", colmap_name=name,
+                                    GS_iterations=iters,
+                                    GS_save_test_iterations=[iters])
+    strings = create_strings(args, base)
+    dlnr = init_dlnr_(DLNR(), torch.Generator().manual_seed(0))
+    counters = kernel_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    rs.TSDF = RecordedTSDF
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mesh_path = rs.run_single(args, base_dir=base,
+                                      stereo_model=dlnr, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        rs.TSDF = RecordedTSDF.__base__
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    stage_report(prof, wall, [("run_single", rs.RUN_STAGES)],
+                 "pipeline pass 1")
+    del prof
+    log(f"pipeline pass 1: profile read in {time.perf_counter() - t0:.1f} s;"
+        f" peak device memory {peak:.3f} GiB")
+    want = {"K1": iters + 2 * n_views, "K2": iters + 2 * n_views,
+            "K3": iters, "K4": iters}
+    log(f"pipeline pass 1 launches {launches} (implied by {iters} steps and "
+        f"{n_views} stereo views, 2 renders each: {want}); equal counts "
+        f"mean no step was redone, so no pair overflow in training, and a "
+        f"stereo render raises on overflow")
+    check(launches == want, f"pass 1 launches {launches} != {want}")
+
+    check(mesh_path == strings["ply_path"], "cleaned mesh at create_strings'"
+          f" ply_path ({mesh_path})")
+    model_dir = os.path.join(base, "splatting_output", strings["splatting"],
+                             name)
+    out_root = strings["output_dir_root"]
+    paths = [os.path.join(model_dir, "point_cloud", f"iteration_{iters}",
+                          "point_cloud.ply"),
+             os.path.join(model_dir, f"chkpnt{iters}.pt"),
+             os.path.join(out_root, "camera_data.json"),
+             os.path.join(out_root, f"{strings['TSDF']}_mesh.ply"), mesh_path]
+    for i in range(n_views):
+        view = os.path.join(out_root, f"{i:03}")
+        paths += [os.path.join(view, f) for f in
+                  ("left.png", "right.png", "left_mask.npy", "left_mask.png")]
+        paths += [os.path.join(view, f"out_{args.stereo_model}", f) for f in
+                  ("disparity_LR.npy", "disparity_RL.npy", "depth.npy",
+                   "occlusion_mask.npy")]
+    missing = [p for p in paths if not os.path.exists(p)]
+    check(not missing, f"pass 1 artifacts missing: {missing[:4]}")
+    mask0 = np.load(os.path.join(out_root, "000", "left_mask.npy"))
+    check(mask0.shape == (cfg["height"], cfg["width"]) and mask0.any(),
+          f"DTU mask of view 0: {mask0.shape}")
+    target = read_png(os.path.join(colmap_dir, "images", "000.png"))
+    left = read_png(os.path.join(out_root, "000", "left.png"))
+    l1 = float(np.abs(left.astype(np.float64) - target).mean() / 255.0)
+    l1_black = float(target.mean() / 255.0)
+    log(f"pipeline pass 1: view 0 left.png vs its target: L1 {l1:.5f} "
+        f"(untrained model {l1_init:.5f}, black image {l1_black:.5f}; limit "
+        f"{PIPE_L1_SHARE} x untrained = {PIPE_L1_SHARE * l1_init:.5f})")
+    check(l1 < PIPE_L1_SHARE * l1_init, "trained model closer to the target")
+    log(f"pipeline pass 1 TSDF on the random-weight DLNR's depth: "
+        f"{tsdf_counts()}")
+
+    # ---- pass 2: analytic depth, then the DTU driver through the CLI
+    r = Renderer(base, colmap_dir, out_root, args, device="cuda")
+    b = r.baseline
+    band = (args.TSDF_min_depth_baselines * b,
+            args.TSDF_max_depth_baselines * b / args.TSDF_scale)
+    for i, cam in enumerate(r.left_cameras):
+        K = np.array([[cam["fx"], 0, cam["cx"]], [0, cam["fy"], cam["cy"]],
+                      [0, 0, 1.0]])
+        E = np.linalg.inv(np.asarray(cam["extrinsic"], np.float64))
+        depth = sphere_depth(K, E, cam["width"], cam["height"])
+        hit = depth[depth > 0]
+        check(band[0] < hit.min() and hit.max() < band[1],
+              f"view {i}: sphere depth inside the DTU band {band}")
+        out = os.path.join(r.render_folder_name(i), f"out_{args.stereo_model}")
+        np.save(os.path.join(out, "depth.npy"), depth)
+        np.save(os.path.join(out, "occlusion_mask.npy"),
+                np.ones(depth.shape, bool))
+    del r
+    argv = ["dtu", "--scans", str(scan), "--skip_GS", "--skip_rendering",
+            "--GS_iterations", str(iters), "--GS_save_test_iterations",
+            str(iters)]
+    for k in counters.values():
+        k.launches = 0
+    cwd = os.getcwd()
+    os.chdir(base)
+    rs.TSDF = RecordedTSDF
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rc = run_pipeline.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        rs.TSDF = RecordedTSDF.__base__
+    check(rc == 0, f"run_pipeline.main exit {rc}")
+    check(all(c.launches == 0 for c in counters.values()),
+          "pass 2 renders nothing")
+    stage_report(prof, wall, [("run_single", rs.RUN_STAGES),
+                              ("run_DTU", DTU_RANGES),
+                              ("dtu_eval", EVAL_RANGES)],
+                 f"pipeline pass 2 (python -m gs2mesh_torch.cli.run_pipeline "
+                 f"{' '.join(argv)})")
+    del prof
+    voxel = args.TSDF_voxel / 512.0
+    mesh = read_ply(mesh_path)
+    rad = np.linalg.norm(mesh.positions, axis=1)
+    med = float(np.median(np.abs(rad - 1.0)))
+    log(f"pipeline pass 2 TSDF on the analytic depth: {tsdf_counts()}; "
+        f"cleaned mesh {len(mesh.positions)} vertices, {len(mesh.faces)} "
+        f"faces; median ||v| - 1| {med:.3e} (limit {2 * voxel:.3e})")
+    check(len(mesh.positions) > 1000 and med < 2 * voxel,
+          "pass 2: cleaned mesh on the sphere")
+    exp = os.path.join(base, "evaluation", "DTU", "eval_output",
+                       strings["dataset"])
+    with open(os.path.join(exp, "evaluation_results.csv")) as f:
+        rows = list(csv.reader(f))
+    limit_mm = 2 * voxel * cfg["r_mm"]
+    log(f"pipeline pass 2 CSV: {rows} (limit {limit_mm:.4f} mm = 2 voxels)")
+    check(len(rows) == 2 and rows[1][0] == str(scan), "one CSV row")
+    vals = [float(x) for x in rows[1][1:]]
+    check(all(math.isfinite(v) and 0 <= v < limit_mm for v in vals),
+          "d2s, s2d and overall finite and under 2 voxels in mm")
+    for f in ("results.json", f"vis_{scan:03}_d2s.ply",
+              f"vis_{scan:03}_s2d.ply", f"{strings['dataset']}_{name}.ply"):
+        check(os.path.exists(os.path.join(exp, str(scan), f)), f"pass 2: {f}")
+    return launches
+
+
 def main():
     global SAVE_FORWARD_DIR
     import argparse
@@ -1876,6 +2261,12 @@ def main():
         row["launches_train"] = train_launches[key]
         row.update(train_t[key.lower()])
     log(f"phase train timings + profile: {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    t_phase = time.perf_counter()
+    pipe = phase_pipeline(work)
+    for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
+        row["launches_pipeline"] = pipe[key]
+    log(f"phase pipeline: {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work)
 
     print(json.dumps({"kernels": rows}))

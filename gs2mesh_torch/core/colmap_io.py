@@ -326,6 +326,16 @@ def write_model_text(sparse_dir: str, cameras, images, points) -> None:
     write_points3D_text(os.path.join(sparse_dir, "points3D.txt"), points)
 
 
+def convert_bin_to_text(sparse_dir: str) -> None:
+    """bin -> txt in place (the reference shells out to COLMAP's
+    model_converter for this; the port writes the text files itself)."""
+    cameras = read_cameras_binary(os.path.join(sparse_dir, "cameras.bin"))
+    images = read_images_binary(os.path.join(sparse_dir, "images.bin"))
+    p3d_path = os.path.join(sparse_dir, "points3D.bin")
+    points = read_points3D_binary(p3d_path) if os.path.exists(p3d_path) else {}
+    write_model_text(sparse_dir, cameras, images, points)
+
+
 def poses_from_model(images: Dict[int, ColmapImage]) -> np.ndarray:
     """(N, 3, 4) world-to-camera [R|t] sorted by image id
     (the reference sorts by image id; gs2mesh_utils/colmap_utils.py:26-42)."""

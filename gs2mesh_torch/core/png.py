@@ -1,9 +1,10 @@
 """8-bit PNG files without an image library (zlib + struct).
 
-``write_png`` writes (H, W, 3) uint8 RGB or (H, W) uint8 grayscale with
-filter 0 on every row. ``read_png`` decodes 8-bit grayscale, RGB and RGBA
-non-interlaced PNGs (all five row filters) and raises ValueError for any
-other format, so an unsupported file never decodes into wrong pixels.
+``write_png`` writes (H, W, 3) uint8 RGB, (H, W, 4) RGBA or (H, W) uint8
+grayscale with filter 0 on every row. ``read_png`` decodes 8-bit
+grayscale, RGB and RGBA non-interlaced PNGs (all five row filters) and
+raises ValueError for any other format, so an unsupported file never
+decodes into wrong pixels.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ _CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG; (H, W) uint8 -> 8-bit grayscale."""
+    """(H, W, 3) uint8 -> 8-bit RGB PNG; (H, W, 4) uint8 -> RGBA; (H, W)
+    uint8 -> 8-bit grayscale."""
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and
-                                                       img.shape[2] == 3)):
-        raise ValueError(f"expected (H, W, 3) or (H, W) uint8, got "
-                         f"{img.dtype} {img.shape}")
+                                                       img.shape[2] in (3, 4))):
+        raise ValueError(f"expected (H, W, 3), (H, W, 4) or (H, W) uint8, "
+                         f"got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    ctype = 0 if img.ndim == 2 else 2
+    ctype = 0 if img.ndim == 2 else {3: 2, 4: 6}[img.shape[2]]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
                           axis=1)                # filter byte 0 per row
 

@@ -2,7 +2,9 @@
 
 The port's own copy of the reference's conventions
 (gs2mesh_utils/transformation_utils.py): Euler-angle camera descriptions,
-the OpenCV<->GS axis flips and the stereo right-camera pose.
+the OpenCV<->GS axis flips and the stereo right-camera pose, with the
+quaternion, projection and sphere-fit helpers the SfM stage, the renderer
+and the evaluations use.
 """
 
 from __future__ import annotations
@@ -86,6 +88,39 @@ def intrinsic_from_camera_params(p: dict) -> np.ndarray:
     )
 
 
+def depth_image_to_point_cloud(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
+    """Backproject a depth image into camera-space 3D points (H*W, 3)."""
+    h, w = depth.shape
+    i, j = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
+    pix = np.stack([i, j, np.ones_like(i)], axis=-1).reshape(-1, 3)
+    pts = (np.linalg.inv(K) @ pix.T) * depth.reshape(-1)
+    return pts.T
+
+
+def project_points_to_image(points: np.ndarray, K: np.ndarray) -> np.ndarray:
+    """Project camera-space 3D points to pixel coordinates (N, 2)."""
+    p = (K @ points.T).T
+    return p[:, :2] / p[:, 2:3]
+
+
+def transform_points(points: np.ndarray, R: np.ndarray, T: np.ndarray) -> np.ndarray:
+    return points @ R.T + T
+
+
+def matrix_to_quaternion(R: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> quaternion (x, y, z, w), scipy convention."""
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_matrix(R).as_quat()
+
+
+def quaternion_to_matrix(q: np.ndarray) -> np.ndarray:
+    """Quaternion (x, y, z, w) -> rotation matrix."""
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_quat(q).as_matrix()
+
+
 def qvec2rotmat_wxyz(qvec) -> np.ndarray:
     """COLMAP-style (w, x, y, z) quaternion -> rotation matrix."""
     w, x, y, z = np.asarray(qvec, dtype=np.float64)
@@ -100,10 +135,30 @@ def qvec2rotmat_wxyz(qvec) -> np.ndarray:
 
 def rotmat2qvec_wxyz(R: np.ndarray) -> np.ndarray:
     """Rotation matrix -> COLMAP-style (w, x, y, z) quaternion."""
-    from scipy.spatial.transform import Rotation
-
-    q = Rotation.from_matrix(R).as_quat()  # x, y, z, w
+    q = matrix_to_quaternion(R)  # x, y, z, w
     return np.array([q[3], q[0], q[1], q[2]])
+
+
+def sphere_fit_radius(points: np.ndarray) -> float:
+    """Least-squares sphere fit; returns the radius.
+
+    Used for stereo-baseline selection on non-360 scenes
+    (reference renderer_utils.py:162-169). The start point is the points'
+    mean taken as the JAX package's renderer stage takes it (one mean over
+    the rows), so its baselines are bit-equal; the JAX package's own
+    ``sphere_fit_radius`` takes each coordinate's mean apart, which can
+    round the last bit otherwise.
+    """
+    from scipy.optimize import least_squares
+
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    x0 = np.array([*np.mean(points, axis=0), 1.0])
+
+    def residuals(p):
+        return np.sqrt((x - p[0]) ** 2 + (y - p[1]) ** 2 + (z - p[2]) ** 2) - p[3]
+
+    result = least_squares(residuals, x0)
+    return float(result.x[3])
 
 
 def get_shading(img: np.ndarray, eps: float) -> np.ndarray:

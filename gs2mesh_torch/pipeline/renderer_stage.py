@@ -76,16 +76,7 @@ def compute_baseline(camera_locations: np.ndarray, args) -> float:
         if args.dataset_name == "DTU":
             radius *= 2
     else:
-        from scipy.optimize import least_squares
-        x_m, y_m, z_m = np.mean(ts, axis=0)
-        x, y, z = ts[:, 0], ts[:, 1], ts[:, 2]
-
-        def residuals(p):
-            return np.sqrt((x - p[0]) ** 2 + (y - p[1]) ** 2
-                           + (z - p[2]) ** 2) - p[3]
-
-        radius = float(least_squares(
-            residuals, np.array([x_m, y_m, z_m, 1.0])).x[3])
+        radius = tf.sphere_fit_radius(ts)
     return radius * (args.renderer_baseline_percentage / 100.0)
 
 

@@ -53,15 +53,17 @@ def _resolve_scale(width: int, resolution: int) -> float:
     return 1.0
 
 
-def _resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
-    """(H, W, 3) uint8 -> (h, w, 3) uint8 by antialiased bicubic
-    interpolation (close to, not bit-equal with, the reference's PIL
-    resize)."""
-    x = torch.from_numpy(img).permute(2, 0, 1)[None].to(torch.float32)
-    y = torch.nn.functional.interpolate(x, size=(h, w), mode="bicubic",
-                                        antialias=True, align_corners=False)
-    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(
-        torch.uint8).numpy()
+def resize_image(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """(H, W) or (H, W, C) uint8 -> (h, w) or (h, w, C) uint8 by
+    antialiased bicubic interpolation (close to, not bit-equal with, the
+    reference's PIL resize)."""
+    hwc = img if img.ndim == 3 else img[..., None]
+    x = torch.from_numpy(hwc.copy()).permute(2, 0, 1)[None]
+    y = torch.nn.functional.interpolate(x.to(torch.float32), size=(h, w),
+                                        mode="bicubic", antialias=True,
+                                        align_corners=False)
+    out = y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+    return out if img.ndim == 3 else out[..., 0]
 
 
 def load_colmap_scene(colmap_dir: str, images_dir: str = "images",
@@ -99,7 +101,7 @@ def load_colmap_scene(colmap_dir: str, images_dir: str = "images",
         w = round(pix.shape[1] / scale)
         h = round(pix.shape[0] / scale)
         if (w, h) != (pix.shape[1], pix.shape[0]):
-            pix = _resize(pix, w, h)
+            pix = resize_image(pix, w, h)
         cam_list.append(make_camera(R, T, focal2fov(fx, cam.width),
                                     focal2fov(fy, cam.height), w, h,
                                     device=device))

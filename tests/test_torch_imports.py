@@ -1,4 +1,7 @@
-"""The PyTorch port and chip_smoke.py must not import JAX or the JAX package.
+"""The PyTorch port and chip_smoke.py must not import JAX or the JAX package,
+and must not import PIL, OpenCV or matplotlib when a module is imported
+(the card's machine has none of them; a function that needs one imports it
+when it runs).
 
 Checked statically (an AST scan of every import statement): the test
 process itself has JAX loaded, so sys.modules cannot tell."""
@@ -11,6 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "gs2mesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "gs2mesh_tpu")
+NOT_AT_IMPORT = ("PIL", "cv2", "matplotlib")
 
 
 def imported_modules(path: Path):
@@ -19,6 +23,22 @@ def imported_modules(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+
+
+def module_level_imports(path: Path):
+    """Modules imported by statements outside every function body."""
+    def visit(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                yield from (a.name for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module or ""
+            yield from visit(child)
+
+    yield from visit(ast.parse(path.read_text(), str(path)))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -42,3 +62,25 @@ def test_scan_sees_the_port():
         assert f"gs2mesh_torch/fusion/{fusion}.py" in names
     assert {"gs2mesh_torch/pipeline/tsdf_stage.py",
             "gs2mesh_torch/pipeline/masker_stage.py"} <= names
+    for module in ("pipeline/run_single", "pipeline/strings",
+                   "pipeline/config", "pipeline/__init__",
+                   "sfm/__init__", "sfm/colmap_driver",
+                   "evals/__init__", "evals/geometry", "evals/dtu",
+                   "evals/tnt", "evals/mobilebrick", "native/__init__",
+                   "cli/run_pipeline", "cli/drivers", "cli/preprocess"):
+        assert f"gs2mesh_torch/{module}.py" in names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_image_library_at_import(path):
+    bad = [m for m in module_level_imports(path)
+           if m.split(".")[0] in NOT_AT_IMPORT]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
+
+
+def test_import_scan_sees_function_imports_only_inside_functions(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import os\nfrom PIL import Image\nclass A:\n"
+                     "    import cv2\ndef f():\n    import matplotlib\n")
+    assert sorted(module_level_imports(probe)) == ["PIL", "cv2", "os"]
+    assert "matplotlib" in set(imported_modules(probe))
