@@ -104,7 +104,25 @@ Phases (any failure raises, and the script exits non-zero):
      torch.profiler: host seconds and device busy by run_single.* /
      run_DTU.* / dtu_eval.* range, pass 1's peak memory. The kernels line
      gets each kernel's launches over pass 1 (launches_pipeline);
-  9. last line: {"ok": true, "device": {...}}.
+  9. SAM2 masking (plain PyTorch on the card; no Pallas kernel on it):
+     (a) a seeded SAM2Config.tiny(128) with the object gate opened, on the
+     card against the CPU: the image predictor's IoUs and low-res logits and
+     3-frame video propagation, float64 within 1e-9 of the largest |value|,
+     float32 (TF32 off) within 1e-4 of it or 4x the CPU's own float32 error
+     against float64; (b) a seeded SAM2Config.large() written as
+     sam2_hiera_large.pt (the released layout), SAM2Masker(device="cuda")
+     .segment() over phase 8's 8 pass-1 views at 1554x1162 (image size
+     1024): per-frame encode and track ms, peak memory, every
+     left_mask.{npy,png} with the view's shape, the mask fill;
+ 10. the GS tools: gs_full_eval on phase 6's scene (8 views at 960x576,
+     300k points, view 0 held out) for 40 iterations with checkpoints at 20
+     and 40, each stage's wall, K1-K4 launches as the run implies
+     (launches_gs_tools in the kernels line), the test renders' shapes and
+     finite metrics; gs_metrics(lpips=True) on seeded VGG16 / LPIPS head
+     files; LPIPS on the card against the CPU on one 960x576 pair (2e-4
+     relative) and its ms; render_golden on the card against K1/K2 on a
+     3000-gaussian 64x64 scene (2e-5);
+ 11. last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
@@ -2004,7 +2022,8 @@ def phase_pipeline(work, cfg=None):
     stereo pairs -> DLNR -> DTU masks -> TSDF), then the DTU driver through
     the CLI on the sphere's analytic depth (pass 2: masks -> TSDF ->
     cull_scan -> dtu_eval -> CSV row). Returns K1-K4's launches over pass
-    1's run_single."""
+    1's run_single, and pass 1's (base, colmap_dir, output root, args) for
+    phase 9b."""
     import csv
 
     from torch.profiler import ProfilerActivity, profile
@@ -2181,6 +2200,360 @@ def phase_pipeline(work, cfg=None):
     for f in ("results.json", f"vis_{scan:03}_d2s.ply",
               f"vis_{scan:03}_s2d.ply", f"{strings['dataset']}_{name}.ply"):
         check(os.path.exists(os.path.join(exp, str(scan), f)), f"pass 2: {f}")
+    return launches, (base, colmap_dir, out_root, args)
+
+
+SAM2_SMALL = 128                 # phase 9a's card-vs-CPU image size
+# Phase 9a's limits, against the largest |value| of the CPU's output: float64
+# on the card against float64 on the CPU; float32 (TF32 off) against the
+# CPU's float32, or 4x the CPU's own float32 error against float64 where
+# that is larger (the anchoring phase 5b uses for DLNR).
+SAM2_F64_TOL = 1e-9
+SAM2_F32_TOL = 1e-4
+# Phase 10's limit on LPIPS card against CPU, relative (tests/test_lpips.py).
+LPIPS_PAIR_TOL = 2e-4
+
+
+def sam2_frames(n, h=96, w=120, seed=0):
+    """Seeded frames with a moving red square (tests/test_sam2.py)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 255, (h, w, 3)).astype(np.uint8)
+    out = []
+    for i in range(n):
+        f = base.copy()
+        f[20 + 3 * i:60 + 3 * i, 30 + 3 * i:70 + 3 * i] = [200, 40, 40]
+        out.append(f)
+    return out
+
+
+def sam2_seeded(cfg, seed=0):
+    """The port's seeded SAM2 with the object gate opened (the object-score
+    head's last bias at 5, tests/test_golden_fixtures.py:95-98), so the
+    masks are the decoder's and not the no-object fill."""
+    from gs2mesh_torch.sam2 import SAM2, init_sam2_params, load_weights
+
+    state = init_sam2_params(cfg, seed)
+    state["sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(5.0)
+    return state, load_weights(SAM2(cfg), state).eval()
+
+
+def phase_sam2_checks():
+    """Phase 9a: the image predictor (IoUs, low-res logits) and 3-frame
+    video propagation at SAM2Config.tiny(128) on the card against the CPU,
+    in float64 and then float32."""
+    import copy
+
+    from gs2mesh_torch.sam2 import (SAM2Config, SAM2ImagePredictor,
+                                    SAM2VideoPredictor)
+
+    _, net = sam2_seeded(SAM2Config.tiny(SAM2_SMALL))
+    frames = sam2_frames(3)
+
+    def run(dev, dtype):
+        m = copy.deepcopy(net).to(dtype)
+        img = SAM2ImagePredictor(m, device=dev)
+        img.set_image(frames[0])
+        _, ious, low = img.predict(point_coords=np.array([[60.0, 48.0]]),
+                                   point_labels=np.array([1]))
+        vid = SAM2VideoPredictor(m, device=dev)
+        state = vid.init_state(frames=frames)
+        vid.add_new_points_or_box(state, 0, box=[30, 20, 70, 60])
+        video = np.stack([v for _, _, v in vid.propagate_in_video(state)])
+        return {"ious": ious, "low-res logits": low, "video logits": video}
+
+    compare_sam2_card_cpu(run, f"tiny/{SAM2_SMALL}")
+
+
+def compare_sam2_card_cpu(run, what):
+    """Hold run(device, dtype)'s named outputs on the card to the CPU's, in
+    float64 and in float32, at phase 9a's limits."""
+    outs = {(d, t): {k: np.asarray(v) for k, v in run(d, t).items()}
+            for d in ("cpu", "cuda") for t in (torch.float64, torch.float32)}
+    for key in outs[("cpu", torch.float64)]:
+        exact = outs[("cpu", torch.float64)][key].astype(np.float64)
+        scale = float(np.abs(exact).max())
+        e64 = float(np.abs(outs[("cuda", torch.float64)][key]
+                           - exact).max()) / scale
+        cpu32 = outs[("cpu", torch.float32)][key]
+        card32 = outs[("cuda", torch.float32)][key]
+        cpu_err = float(np.abs(cpu32 - exact).max()) / scale
+        limit = max(SAM2_F32_TOL, 4 * cpu_err)
+        e32 = float(np.abs(card32 - cpu32).max()) / scale
+        e32x = float(np.abs(card32 - exact).max()) / scale
+        log(f"sam2 {what} {key} {exact.shape}: max |value| "
+            f"{scale:.4f}; card vs cpu float64 {e64:.3e} of max (limit "
+            f"{SAM2_F64_TOL:.0e}); float32 card vs cpu {e32:.3e}, card vs "
+            f"float64 {e32x:.3e}, cpu vs float64 {cpu_err:.3e}: limit "
+            f"{limit:.3e}")
+        check(e64 <= SAM2_F64_TOL, f"sam2 {what} {key}: float64 card vs cpu")
+        check(e32 <= limit and e32x <= limit,
+              f"sam2 {what} {key}: float32 card vs cpu")
+        check(np.isfinite(card32).all(), f"sam2 {what} {key}: finite")
+
+
+def phase_sam2_masker(work, pipe, preset="large"):
+    """Phase 9b: SAM2Masker on a seeded SAM2Config.large() checkpoint
+    (sam2_hiera_large.pt, the released layout) over the views phase 8's
+    pass 1 rendered (8 at 1554x1162, image size 1024): per-frame encode and
+    track ms, peak memory, every mask's files and shape, the fill; then
+    view 0 on the card against the CPU as phase 9a holds tiny/128.
+    ``preset`` names another config (a CPU rehearsal runs "tiny")."""
+    import copy
+
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.pipeline import Renderer, SAM2Masker
+    from gs2mesh_torch.sam2 import SAM2Config, SAM2VideoPredictor
+    from gs2mesh_torch.sam2.predictor import read_frame
+
+    base, colmap_dir, out_root, args = pipe
+    t0 = time.perf_counter()
+    cfg = getattr(SAM2Config, preset)()
+    state, _ = sam2_seeded(cfg)
+    ckpt = os.path.join(work, f"sam2_hiera_{preset}.pt")
+    torch.save({"model": state}, ckpt)
+    n_params = sum(v.numel() for v in state.values())
+    del state
+    log(f"sam2 {preset}: {n_params} weights written to {ckpt} "
+        f"({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    r = Renderer(base, colmap_dir, out_root, args, device="cuda")
+    t0 = time.perf_counter()
+    masker = SAM2Masker(r, sam2_checkpoint=ckpt, device="cuda")
+    check(masker.predictor.cfg == cfg, f"{preset} preset")
+    log(f"sam2 {preset}: SAM2Masker built (checkpoint load + to cuda) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    pred, core = masker.predictor, masker.predictor.core
+    plain_encode, plain_track = core.encode, pred._track_frame
+
+    def timed(fn, out):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+            return res
+        return run
+
+    enc, trk = [], []
+    core.encode = timed(plain_encode, enc)
+    pred._track_frame = timed(plain_track, trk)
+    for i in range(len(r)):
+        os.remove(os.path.join(r.render_folder_name(i), "left_mask.npy"))
+        os.remove(os.path.join(r.render_folder_name(i), "left_mask.png"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        masker.segment()
+        torch.cuda.synchronize()
+    finally:
+        core.encode, pred._track_frame = plain_encode, plain_track
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = len(r)
+    check(len(enc) == n and len(trk) == n - 1,
+          f"one encode a view ({len(enc)}), one track a later view "
+          f"({len(trk)})")
+    # _track_frame encodes its own frame: its track time is the rest.
+    tracks = [t - e for t, e in zip(trk, enc[1:])]
+    fills = []
+    for i in range(n):
+        view = r.render_folder_name(i)
+        m = np.load(os.path.join(view, "left_mask.npy"))
+        png = read_png(os.path.join(view, "left_mask.png"))
+        check(m.dtype == np.bool_ and m.shape == (r.left_cameras[i]["height"],
+                                                  r.left_cameras[i]["width"]),
+              f"view {i}: mask {m.dtype} {m.shape}")
+        check(png.shape == m.shape and np.array_equal(png > 0, m),
+              f"view {i}: left_mask.png")
+        fills.append(float(m.mean()))
+    log(f"sam2 {preset} segment() over {n} views at "
+        f"{m.shape[1]}x{m.shape[0]} (image size {cfg.image_size}): wall "
+        f"{wall:.2f} s; "
+        f"encode ms a frame {['%.1f' % x for x in enc]} (median "
+        f"{np.median(enc):.1f}); track ms a frame after the encode "
+        f"{['%.1f' % x for x in tracks]} (median {np.median(tracks):.1f}); "
+        f"peak device memory {peak:.3f} GiB; mask fill "
+        f"{['%.3f' % f for f in fills]}")
+
+    # View 0 at this preset's full width on the card against the CPU: the
+    # encoder's FPN levels and the low-res logits of segment()'s box prompt.
+    frame = read_frame(os.path.join(r.render_folder_name(0), "left.png"))
+    h, w = frame.shape[:2]
+    box = np.array([0.02 * w, 0.02 * h, 0.98 * w, 0.98 * h])
+    net = copy.deepcopy(pred.core.model).cpu()
+    del masker, pred, core
+    torch.cuda.empty_cache()
+
+    def run(dev, dtype):
+        vid = SAM2VideoPredictor(copy.deepcopy(net).to(dtype), device=dev)
+        state = vid.init_state(frames=[frame])
+        vid.add_new_points_or_box(state, 0, box=box)
+        high_res, feat, _ = state["features"][0]
+        out = {f"fpn {i}": f.cpu().numpy()
+               for i, f in enumerate(high_res + [feat])}
+        out["low-res logits"] = (
+            state["cond_outputs"][0]["pred_masks"].cpu().numpy())
+        return out
+
+    t0 = time.perf_counter()
+    compare_sam2_card_cpu(run, f"{preset}/{cfg.image_size} view 0")
+    log(f"sam2 {preset} view 0 card vs cpu: {time.perf_counter() - t0:.1f} s")
+
+
+def lpips_flops(h, w):
+    """Multiply-adds x 2 of the VGG16 trunk LPIPS runs on one h x w image."""
+    from gs2mesh_torch.metrics.lpips import _VGG16_PLAN
+
+    ops, cin = 0, 3
+    for spec in _VGG16_PLAN:
+        if spec == "M":
+            h, w = h // 2, w // 2
+        else:
+            ops += 2 * h * w * 9 * cin * spec
+            cin = spec
+    return ops
+
+
+def phase_gs_tools(work, iters=(20, 40)):
+    """Phase 10: gs_full_eval on the training phase's scene (8 PNG views at
+    960x576, 300k points, eval split: view 0 is the test view) for 40
+    iterations with checkpoints at 20 and 40, each stage timed; then
+    gs_metrics(lpips=True) with seeded VGG16 and LPIPS head files; LPIPS on
+    the card against the CPU on one pair; render_golden on the card
+    against K2 on a 3000-gaussian 64x64 scene. Returns K1-K4's launches
+    over gs_full_eval."""
+    from gs2mesh_torch.cli import gs_tools
+    from gs2mesh_torch.core.camera import make_camera
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.metrics import init_lpips_params, load_lpips, lpips
+    from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
+    from gs2mesh_torch.ops.rasterizer.golden import render_golden
+
+    src = os.path.join(work, "train_scene")
+    out = os.path.join(work, "gs_tools")
+    images = os.path.join(src, "images")
+    size = read_png(os.path.join(images, sorted(os.listdir(images))[0])
+                    ).shape[:2]
+    trainers, walls = [], {}
+    plain = {k: getattr(gs_tools, k)
+             for k in ("gs_train", "gs_render", "gs_metrics")}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = plain[name](*a, **kw)
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append(time.perf_counter() - t)
+            if name == "gs_train":
+                trainers.append(res)
+            return res
+        return run
+
+    counters = kernel_counts()
+    for k in plain:
+        setattr(gs_tools, k, timed(k))
+    for k in counters.values():
+        k.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = gs_tools.gs_full_eval([src], out, iterations=iters,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, fn in plain.items():
+            setattr(gs_tools, k, fn)
+    launches = {k: c.launches for k, c in counters.items()}
+    tr = trainers[0]
+    model_path = os.path.join(out, "train_scene")
+    # An overflowed step doubles the capacity and is redone (K1 and K2
+    # again); each checkpoint renders the test views once.
+    redos = int(round(math.log2(tr.rcfg.pair_capacity
+                                / RasterizerConfig().pair_capacity)))
+    renders = sum(len(os.listdir(os.path.join(
+        model_path, "test", f"ours_{it}", "renders"))) for it in iters)
+    want = {"K1": iters[-1] + redos + renders,
+            "K2": iters[-1] + redos + renders,
+            "K3": iters[-1], "K4": iters[-1]}
+    log(f"gs_full_eval (python -m gs2mesh_torch.cli.gs_tools train / render "
+        f"/ metrics) on {src}: wall {wall:.2f} s; by stage "
+        f"{ {k: ['%.2f s' % x for x in v] for k, v in walls.items()} }; "
+        f"results {res}; pair capacity {tr.rcfg.pair_capacity} ({redos} "
+        f"overflow redos); launches {launches} (implied {want})")
+    check(tr.iteration == iters[-1], f"gs_full_eval trained {iters[-1]} "
+          f"iterations")
+    check(launches == want, f"gs_full_eval launches {launches} != {want}")
+    for it in iters:
+        for kind in ("renders", "gt"):
+            img = read_png(os.path.join(model_path, "test", f"ours_{it}",
+                                        kind, "00000.png"))
+            check(img.shape == size + (3,), f"ours_{it} {kind} shape")
+        m = res[model_path][f"ours_{it}"]
+        check(all(math.isfinite(v) for v in m.values()) and 0 < m["SSIM"]
+              <= 1 and m["PSNR"] > 0, f"ours_{it} metrics {m}")
+
+    # gs_metrics with LPIPS, seeded weights as the two files it reads.
+    state = init_lpips_params(seed=1)
+    vgg = os.path.join(work, "vgg16.pth")
+    lin = os.path.join(work, "lpips_lin.pth")
+    torch.save({k: v for k, v in state.items() if k.startswith("features.")},
+               vgg)
+    torch.save({f"lin{i}.model.1.weight": state[f"lins.{i}"].reshape(
+        1, -1, 1, 1) for i in range(5)}, lin)
+    os.environ["GS2MESH_LPIPS_VGG"], os.environ["GS2MESH_LPIPS_LIN"] = vgg, lin
+    t0 = time.perf_counter()
+    scored = gs_tools.gs_metrics([model_path], lpips=True, device="cuda")
+    torch.cuda.synchronize()
+    log(f"gs_metrics(lpips=True): {time.perf_counter() - t0:.2f} s, "
+        f"{scored}")
+    for it in iters:
+        v = scored[model_path][f"ours_{it}"]["LPIPS"]
+        check(math.isfinite(v) and v >= 0, f"ours_{it} LPIPS {v}")
+    a = torch.from_numpy(read_png(os.path.join(
+        model_path, "test", f"ours_{iters[-1]}", "renders", "00000.png"))
+        .astype(np.float32).transpose(2, 0, 1) / 255.0)[None]
+    b = torch.from_numpy(read_png(os.path.join(
+        model_path, "test", f"ours_{iters[-1]}", "gt", "00000.png")).astype(
+        np.float32).transpose(2, 0, 1) / 255.0)[None]
+    card, cpu = load_lpips(state, "cuda"), load_lpips(state, "cpu")
+    a_dev, b_dev = a.cuda(), b.cuda()
+    with torch.no_grad():
+        v_card = float(lpips(card, a_dev, b_dev)[0])
+        v_cpu = float(lpips(cpu, a, b)[0])
+        ms = cuda_time_ms(lambda: lpips(card, a_dev, b_dev), 5)
+    gap = abs(v_card - v_cpu) / max(abs(v_cpu), 1e-30)
+    flops = 2 * lpips_flops(*size)
+    log(f"LPIPS {size[1]}x{size[0]} card {v_card:.7f} vs cpu {v_cpu:.7f}: "
+        f"relative gap {gap:.3e} (limit {LPIPS_PAIR_TOL:.0e}); {ms:.2f} "
+        f"ms a pair on the card, {flops / 1e9:.1f} GFLOP of convolutions "
+        f"({flops / ms / 1e9:.1f} TFLOP/s)")
+    check(gap <= LPIPS_PAIR_TOL, "LPIPS card vs cpu")
+
+    # The golden renderer on the card against K2.
+    d = sphere_scene(3000, seed=4)
+    inp = GaussianModel(params_from_numpy(d, device="cuda"), 3).raster_inputs()
+    R, t = look_at((0.3, 0.2, -3.0))
+    cam = make_camera(R.T, t, math.radians(50), math.radians(50), 64, 64,
+                      device="cuda")
+    args = [inp[k] for k in ("means3d", "scales", "rotations", "opacities",
+                             "shs")]
+    bg = torch.tensor([0.1, 0.2, 0.3], device="cuda")
+    cfg = RasterizerConfig(pair_capacity=1 << 18)
+    with torch.no_grad():
+        k2 = rasterize(*args, cam, 3, bg=bg, cfg=cfg)
+        gold, gold_T, _ = render_golden(*args, cam, 3, bg=bg, cfg=cfg)
+    e_img = float((k2.image - gold).abs().max())
+    e_T = float((k2.final_T - gold_T).abs().max())
+    log(f"render_golden on the card vs K1/K2 (3000 gaussians, 64x64, "
+        f"{int(k2.num_pairs)} pairs): image {e_img:.3e}, final_T {e_T:.3e} "
+        f"(limit 2e-5)")
+    check(not bool(k2.overflow) and e_img <= 2e-5 and e_T <= 2e-5,
+          "render_golden vs K2 on the card")
     return launches
 
 
@@ -2263,10 +2636,19 @@ def main():
     log(f"phase train timings + profile: {time.perf_counter() - t_phase:.1f} s")
     del trainer
     t_phase = time.perf_counter()
-    pipe = phase_pipeline(work)
+    pipe, pipe_tree = phase_pipeline(work)
     for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
         row["launches_pipeline"] = pipe[key]
     log(f"phase pipeline: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_sam2_checks()
+    phase_sam2_masker(work, pipe_tree)
+    log(f"phase sam2: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    tools = phase_gs_tools(work)
+    for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
+        row["launches_gs_tools"] = tools[key]
+    log(f"phase gs tools: {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work)
 
     print(json.dumps({"kernels": rows}))

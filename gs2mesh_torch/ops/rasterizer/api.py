@@ -41,13 +41,20 @@ def rasterize(means3d, scales, rotations, opacities, shs, camera: Camera,
               cfg: RasterizerConfig = RasterizerConfig(),
               scale_modifier: float = 1.0,
               screenspace_offset: Optional[torch.Tensor] = None,
-              max_per_tile: int = 4096) -> RasterizeOutput:
+              max_per_tile: int = 4096,
+              cov3d_precomp: Optional[torch.Tensor] = None,
+              colors_precomp: Optional[torch.Tensor] = None
+              ) -> RasterizeOutput:
     """Render a Gaussian cloud through ``camera`` on the inputs' device.
 
     screenspace_offset: optional (N, 2) zeros added to the projected means;
       its gradient is dL/dmeans2d in pixel units (the reference's
       screenspace_points retain_grad trick).
     max_per_tile: per-tile pair bound of the plain (CPU) compositor.
+    cov3d_precomp / colors_precomp: optional (N, 3, 3) world covariances and
+      (N, 3) colours used in place of scales + rotations and of the SH
+      (``preprocess``); the JAX package's preprocess takes them, its
+      rasterize does not.
     """
     dev = means3d.device
     if camera.device != dev:
@@ -55,7 +62,9 @@ def rasterize(means3d, scales, rotations, opacities, shs, camera: Camera,
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
     prep = preprocess(means3d, scales, rotations, opacities, shs, camera,
-                      sh_degree, cfg, scale_modifier)
+                      sh_degree, cfg, scale_modifier,
+                      cov3d_precomp=cov3d_precomp,
+                      colors_precomp=colors_precomp)
     if screenspace_offset is not None:
         prep = prep._replace(means2d=prep.means2d + screenspace_offset)
     feat9 = build_feat9(prep)

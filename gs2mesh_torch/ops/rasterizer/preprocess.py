@@ -56,13 +56,26 @@ def cov3d_entries(scales, rotations, scale_modifier: float = 1.0):
     return sig(0, 0), sig(0, 1), sig(0, 2), sig(1, 1), sig(1, 2), sig(2, 2)
 
 
+def build_cov3d(scales, rotations, scale_modifier: float = 1.0):
+    """(N, 3) scales + (N, 4) quats -> (N, 3, 3) world covariance."""
+    sxx, sxy, sxz, syy, syz, szz = cov3d_entries(scales, rotations,
+                                                 scale_modifier)
+    return torch.stack([torch.stack([sxx, sxy, sxz], -1),
+                        torch.stack([sxy, syy, syz], -1),
+                        torch.stack([sxz, syz, szz], -1)], dim=-2)
+
+
 def ndc_to_pix(v, size: int):
     return ((v + 1.0) * size - 1.0) * 0.5
 
 
 def preprocess(means3d, scales, rotations, opacities, shs, camera: Camera,
                sh_degree: int, cfg: RasterizerConfig = RasterizerConfig(),
-               scale_modifier: float = 1.0) -> Preprocessed:
+               scale_modifier: float = 1.0, cov3d_precomp=None,
+               colors_precomp=None) -> Preprocessed:
+    """cov3d_precomp: optional (N, 3, 3) world covariances, used in place of
+    the scales and rotations (its upper triangle is read); colors_precomp:
+    optional (N, 3) colours, used in place of the SH evaluation."""
     N = means3d.shape[0]
     f32 = torch.float32
     means3d = means3d.to(f32)
@@ -84,8 +97,14 @@ def preprocess(means3d, scales, rotations, opacities, shs, camera: Camera,
 
     valid = depths > cfg.near
 
-    sxx, sxy, sxz, syy, syz, szz = cov3d_entries(scales, rotations,
-                                                 scale_modifier)
+    if cov3d_precomp is None:
+        sxx, sxy, sxz, syy, syz, szz = cov3d_entries(scales, rotations,
+                                                     scale_modifier)
+    else:
+        sxx, sxy, sxz = (cov3d_precomp[:, 0, 0], cov3d_precomp[:, 0, 1],
+                         cov3d_precomp[:, 0, 2])
+        syy, syz, szz = (cov3d_precomp[:, 1, 1], cov3d_precomp[:, 1, 2],
+                         cov3d_precomp[:, 2, 2])
 
     # EWA projection to the 2D covariance (forward.cu:74-113), expanded.
     fx, fy = camera.focal_x, camera.focal_y
@@ -171,9 +190,12 @@ def preprocess(means3d, scales, rotations, opacities, shs, camera: Camera,
     tiles = (x1 - x0) * (y1 - y0)
     valid = valid & (tiles > 0)
 
-    dirs = means3d - camera.cam_center[None, :]
-    dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
-    rgb = sh_to_rgb(sh_degree, shs, dirs)
+    if colors_precomp is None:
+        dirs = means3d - camera.cam_center[None, :]
+        dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+        rgb = sh_to_rgb(sh_degree, shs, dirs)
+    else:
+        rgb = colors_precomp
 
     radius = torch.where(valid, radius_f, 0.0).to(torch.int32)
     tiles_touched = torch.where(valid & emit_ok, tiles, 0).to(torch.int32)

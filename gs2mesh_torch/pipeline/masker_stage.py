@@ -5,14 +5,17 @@ applies.
 Port of gs2mesh_tpu pipeline/masker_stage.py (the reference's
 gs2mesh_utils/masker_utils.py): ``CopyMasker`` (dataset-provided masks, the
 DTU/MobileBrick path of run_single.py:119-147) and ``FullMasker``
-(all-ones masks for mask-free datasets). The PNG is written by the port's
-own writer (``core/png.py``). The SAM2 masker is not ported yet.
+(all-ones masks for mask-free datasets) and ``SAM2Masker`` (SAM2 video
+propagation from a box or points on view 0; gs2mesh_utils/masker_utils.py:
+42-359). PNGs are read and written by the port's own codec
+(``core/png.py``). GroundingDINO's text-prompt box is not ported yet
+(ROADMAP A15): a ``gdino_checkpoint`` raises.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -96,3 +99,99 @@ class FullMasker(Masker):
         for i in range(len(self.renderer)):
             cam = self.renderer.left_cameras[i]
             self.save_mask(i, np.ones((cam["height"], cam["width"]), bool))
+
+
+class SAM2Masker(Masker):
+    """SAM2 video mask propagation (masker_utils.py:42-359) on the port's
+    SAM2 (gs2mesh_torch.sam2). The view-0 prompt is an explicit ``box`` /
+    ``points`` seed, else a whole-image box (2% margins). ``prompt`` is the
+    GroundingDINO text prompt, kept for when that model is ported."""
+
+    def __init__(self, renderer, prompt: str = "main_object",
+                 box: Optional[np.ndarray] = None,
+                 points: Optional[np.ndarray] = None,
+                 labels: Optional[np.ndarray] = None,
+                 sam2_checkpoint: Optional[str] = None, sam2_model=None,
+                 gdino_checkpoint: Optional[str] = None, device="cuda"):
+        super().__init__(renderer)
+        if gdino_checkpoint:
+            raise NotImplementedError(
+                "GroundingDINO text prompts are not ported yet (ROADMAP "
+                "A15); give SAM2Masker a box or points, or neither for a "
+                "whole-image box")
+        self.prompt = prompt
+        self.box = box
+        self.points = points
+        self.labels = labels
+
+        from gs2mesh_torch.sam2 import (SAM2Config, SAM2VideoPredictor,
+                                        load_sam2_checkpoint)
+
+        if sam2_model is None:
+            if sam2_checkpoint is None:
+                raise ValueError(
+                    "SAM2Masker needs sam2_model or sam2_checkpoint "
+                    "(a released sam2_hiera_*.pt file)")
+            name = os.path.basename(sam2_checkpoint)
+            presets = {"tiny": SAM2Config.tiny, "small": SAM2Config.small,
+                       "base_plus": SAM2Config.base_plus,
+                       "large": SAM2Config.large}
+            cfg = next((v() for k, v in presets.items() if k in name),
+                       SAM2Config.large())
+            sam2_model = load_sam2_checkpoint(sam2_checkpoint, cfg)
+        self.predictor = SAM2VideoPredictor(sam2_model, device=device)
+
+    def preview_mask(self, image: np.ndarray, points=None, labels=None,
+                     box=None) -> np.ndarray:
+        """The best-IoU mask of the SAM2 image predictor on the current
+        seeds, for an interactive redraw (masker_utils.py:269-300)."""
+        from gs2mesh_torch.sam2 import SAM2ImagePredictor
+
+        if getattr(self, "_img_predictor", None) is None:
+            self._img_predictor = SAM2ImagePredictor(
+                self.predictor.core.model, device=self.predictor.core.device)
+            self._img_predictor_image = None
+        pred = self._img_predictor
+        if self._img_predictor_image is not image:
+            pred.set_image(image)
+            self._img_predictor_image = image
+        masks, ious, _ = pred.predict(point_coords=points,
+                                      point_labels=labels, box=box)
+        return masks[int(np.argmax(ious))]
+
+    def segment(self) -> None:
+        from gs2mesh_torch.sam2.predictor import read_frame
+
+        frames = [read_frame(os.path.join(
+            self.renderer.render_folder_name(i), "left.png"))
+            for i in range(len(self.renderer))]
+        state = self.predictor.init_state(frames=frames)
+        box = self.box
+        if box is None and self.points is None:
+            h, w = frames[0].shape[:2]
+            box = np.array([0.02 * w, 0.02 * h, 0.98 * w, 0.98 * h])
+        self.predictor.add_new_points_or_box(
+            state, frame_idx=0, obj_id=0, box=box, points=self.points,
+            labels=self.labels)
+        for frame_idx, _, logits in self.predictor.propagate_in_video(state):
+            self.save_mask(frame_idx, logits[0, 0] > 0.0)
+
+
+SAM2_CHECKPOINT = os.path.join("third_party", "segment-anything-2",
+                               "checkpoints", "sam2_hiera_large.pt")
+
+
+def init_predictor(base_dir, renderer, args, sam2_checkpoint=None,
+                   gdino_checkpoint=None, device="cuda", **kw):
+    """Factory of masker_utils.init_predictor (masker_utils.py:42-69). With
+    no ``sam2_checkpoint`` it takes the reference's
+    ``<base_dir>/third_party/segment-anything-2/checkpoints/
+    sam2_hiera_large.pt`` where that file exists (SAM2Masker raises
+    without weights)."""
+    default = os.path.join(base_dir, SAM2_CHECKPOINT)
+    if sam2_checkpoint is None and os.path.exists(default):
+        sam2_checkpoint = default
+    return SAM2Masker(renderer,
+                      prompt=getattr(args, "masker_prompt", "main_object"),
+                      sam2_checkpoint=sam2_checkpoint,
+                      gdino_checkpoint=gdino_checkpoint, device=device, **kw)

@@ -11,9 +11,11 @@ layout, so every inter-stage artifact is a resume point. Every stage runs on
 
 Differences from the JAX orchestrator: the stereo stage takes a DLNR module
 (``stereo_model``), not a parameter pytree; multi-device GS training
-(``GS_devices != 1``) and SAM2 automasking raise until they are ported
-(ROADMAP A16, A15); the dataset masks are read with the port's PNG reader
-(8-bit gray, RGB or RGBA; a palette or 1-bit PNG raises).
+(``GS_devices != 1``) raises until it is ported (ROADMAP A16); the custom
+dataset's automask finds the reference's SAM2 checkpoint path under
+``base_dir`` (``masker_stage.init_predictor``; JAX's passes none and
+raises); the dataset masks are read with the port's PNG reader (8-bit gray,
+RGB or RGBA; a palette or 1-bit PNG raises).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from torch.profiler import record_function
 from gs2mesh_torch import resolve_device
 from gs2mesh_torch.core.png import read_png
 from gs2mesh_torch.pipeline.config import PipelineArgs
-from gs2mesh_torch.pipeline.masker_stage import CopyMasker
+from gs2mesh_torch.pipeline.masker_stage import CopyMasker, init_predictor
 from gs2mesh_torch.pipeline.renderer_stage import Renderer
 from gs2mesh_torch.pipeline.stereo_stage import Stereo
 from gs2mesh_torch.pipeline.strings import create_strings
@@ -197,11 +199,12 @@ def run_single(args: PipelineArgs, base_dir: str | None = None,
         with record_function("run_single.mask"):
             if args.dataset_name == "custom":
                 if args.masker_automask:
-                    raise NotImplementedError(
-                        "masker_automask: SAM2 masking is not ported yet "
-                        "(ROADMAP A15); run without --masker_automask")
-                print("Automask must be enabled for masking in script mode. "
-                      "Skipping.")
+                    init_predictor(base_dir, renderer, args,
+                                   device=device).segment()
+                    args.TSDF_use_mask = True
+                else:
+                    print("Automask must be enabled for masking in script "
+                          "mode. Skipping.")
             elif args.dataset_name == "DTU":
                 CopyMasker(renderer, dtu_mask_loader(colmap_dir,
                                                      renderer)).segment()

@@ -19,11 +19,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from gs2mesh_torch.core.precision import precision_scope
 from gs2mesh_torch.stereo.corr import build_corr_pyramid, lookup_corr
 from gs2mesh_torch.stereo.extractor import Extractor, extractor_forward
 from gs2mesh_torch.stereo.layers import (Attention, LayerNorm, ResidualBlock,
-                                         conv2d, precision_scope,
-                                         residual_block_instance)
+                                         conv2d, residual_block_instance)
 from gs2mesh_torch.stereo.refinement import Refinement, refinement_forward
 from gs2mesh_torch.stereo.update import UpdateBlock, update_block
 

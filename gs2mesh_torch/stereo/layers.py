@@ -8,13 +8,14 @@ reference torch modules' (DLNR/core/extractor.py, nets/feature.py), so a
 released checkpoint loads with ``load_state_dict``.
 
 Precision. Convolutions and matrix products run in float32 with TF32 off
-(``precision_scope``, which ``dlnr_forward`` enters), as the JAX package's
-default does. ``matmul_dtype(torch.bfloat16)`` is the counterpart of its bf16
-policy: conv and matmul OPERANDS round to bf16; norms, activations, softmax,
-sampling and the correlation lookup stay float32. One rounding more than the
-JAX policy: JAX asks XLA for a float32 product of bf16 operands
-(``preferred_element_type``), while a bf16 cuDNN convolution or cuBLAS
-product returns bf16, which is then widened to float32.
+(``core.precision.precision_scope``, which ``dlnr_forward`` enters), as the
+JAX package's default does. ``matmul_dtype(torch.bfloat16)`` is the
+counterpart of its bf16 policy: conv and matmul OPERANDS round to bf16;
+norms, activations, softmax, sampling and the correlation lookup stay
+float32. One rounding more than the JAX policy: JAX asks XLA for a float32
+product of bf16 operands (``preferred_element_type``), while a bf16 cuDNN
+convolution or cuBLAS product returns bf16, which is then widened to
+float32.
 """
 
 from __future__ import annotations
@@ -38,22 +39,6 @@ def matmul_dtype(dtype):
         yield
     finally:
         _MATMUL_DTYPE.reset(token)
-
-
-@contextlib.contextmanager
-def precision_scope():
-    """Float32 convolutions and matrix products in full float32: TF32 off
-    for cuDNN and cuBLAS inside the block, the caller's flags restored
-    after."""
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 # ---------------------------------------------------------------- conv cores

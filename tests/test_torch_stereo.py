@@ -31,6 +31,7 @@ from gs2mesh_tpu.stereo import layers as jl
 from gs2mesh_tpu.stereo import padder as jpadder
 from gs2mesh_tpu.stereo import refinement as jref
 from gs2mesh_tpu.stereo import update as jupd
+from gs2mesh_torch.core.precision import precision_scope
 from gs2mesh_torch.stereo import (DLNR, DLNRConfig, InputPadder, dlnr_forward,
                                   init_dlnr_, load_checkpoint, load_weights,
                                   params_from_numpy)
@@ -513,7 +514,7 @@ def test_precision_scopes_restore_flags():
               torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
     try:
-        with layers.precision_scope():
+        with precision_scope():
             assert not torch.backends.cudnn.allow_tf32
             assert not torch.backends.cuda.matmul.allow_tf32
         assert torch.backends.cudnn.allow_tf32
