@@ -122,7 +122,33 @@ Phases (any failure raises, and the script exits non-zero):
      files; LPIPS on the card against the CPU on one 960x576 pair (2e-4
      relative) and its ms; render_golden on the card against K1/K2 on a
      3000-gaussian 64x64 scene (2e-5);
- 11. last line: {"ok": true, "device": {...}}.
+ 11. GroundingDINO and the interactive masker (plain PyTorch on the card;
+     no Pallas kernel on it): (a) a seeded small model (Swin embed 32,
+     BERT 64 wide, 20 queries, 2 + 2 layers) on the golden test's 64x96
+     input, card against CPU at phase 9a's limits (float64 within 1e-9 of
+     the largest finite |value|; float32 within 1e-4 of it or 4x the CPU's
+     own float32 error against float64), -inf positions equal, the top-k
+     indices equal across devices in both dtypes, the outputs decoded from
+     the CPU float64 run's picks; (b) a seeded SwinT-OGC (GDINOConfig(), 172M
+     weights) written as groundingdino_swint_ogc.pth in the released
+     layout beside a synthetic 30,522-line vocab.txt;
+     SAM2Masker(gdino_checkpoint=..., gdino_vocab=..., sam2_checkpoint=
+     <9b's sam2_hiera_large.pt>, box_threshold=0).segment() over phase 8's
+     8 views at 1554x1162: one finite view-0 box inside the image that
+     seeds SAM2, every left_mask.{npy,png}; predict's ms cold and the
+     median of 3 warm, the forward's device ms (CUDA events) and by
+     gdino.* range (torch.profiler, every range busy), its FLOPs and
+     TFLOP/s, peak memory above what was resident before (segment(), and
+     a predict's working memory); view 0 at full width on the card
+     against the CPU at (a)'s limits, in both dtypes: the float64 top-k
+     equal, then every run decodes the CPU float64 run's picks so each
+     output is held (how many float32 picks order apart is printed);
+     (c) run_interactive_masker on view 0 with stub
+     matplotlib modules playing 5 scripted clicks and drags: 5 redraws
+     through preview_mask (SAM2-large, ms each), the seeds reaching
+     segment(), every mask;
+ 12. the card's name and power limit again, the "kernels" JSON line, and
+     the last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
@@ -2261,34 +2287,43 @@ def phase_sam2_checks():
         video = np.stack([v for _, _, v in vid.propagate_in_video(state)])
         return {"ious": ious, "low-res logits": low, "video logits": video}
 
-    compare_sam2_card_cpu(run, f"tiny/{SAM2_SMALL}")
+    compare_card_cpu({(d, t): {k: np.asarray(v) for k, v in
+                               run(d, t).items()}
+                      for d in ("cpu", "cuda")
+                      for t in (torch.float64, torch.float32)},
+                     f"sam2 tiny/{SAM2_SMALL}")
 
 
-def compare_sam2_card_cpu(run, what):
-    """Hold run(device, dtype)'s named outputs on the card to the CPU's, in
-    float64 and in float32, at phase 9a's limits."""
-    outs = {(d, t): {k: np.asarray(v) for k, v in run(d, t).items()}
-            for d in ("cpu", "cuda") for t in (torch.float64, torch.float32)}
-    for key in outs[("cpu", torch.float64)]:
-        exact = outs[("cpu", torch.float64)][key].astype(np.float64)
-        scale = float(np.abs(exact).max())
-        e64 = float(np.abs(outs[("cuda", torch.float64)][key]
-                           - exact).max()) / scale
-        cpu32 = outs[("cpu", torch.float32)][key]
-        card32 = outs[("cuda", torch.float32)][key]
-        cpu_err = float(np.abs(cpu32 - exact).max()) / scale
+def compare_card_cpu(outs, what):
+    """Hold the card's outputs to the CPU's at phase 9a's limits:
+    ``outs[(device, dtype)]`` maps names to arrays; each is compared over
+    the CPU float64 output's finite entries, relative to their largest
+    magnitude, and its non-finite entries must be the same everywhere."""
+    cpu64, card64 = outs[("cpu", torch.float64)], outs[("cuda", torch.float64)]
+    cpu32, card32 = outs[("cpu", torch.float32)], outs[("cuda", torch.float32)]
+    for key in cpu64:
+        exact = cpu64[key].astype(np.float64)
+        fin = np.isfinite(exact)
+        for name, arr in (("card float64", card64[key]),
+                          ("cpu float32", cpu32[key]),
+                          ("card float32", card32[key])):
+            check(np.array_equal(np.isfinite(arr), fin) and np.array_equal(
+                arr[~fin], exact[~fin]), f"{what} {key}: {name} finite "
+                f"where the cpu's float64 is")
+        scale = float(np.abs(exact[fin]).max())
+        gap = lambda a, b: float(np.abs(a[fin] - b[fin]).max()) / scale
+        e64 = gap(card64[key], exact)
+        check(e64 <= SAM2_F64_TOL, f"{what} {key}: float64 card vs cpu")
+        cpu_err = gap(cpu32[key], exact)
         limit = max(SAM2_F32_TOL, 4 * cpu_err)
-        e32 = float(np.abs(card32 - cpu32).max()) / scale
-        e32x = float(np.abs(card32 - exact).max()) / scale
-        log(f"sam2 {what} {key} {exact.shape}: max |value| "
+        e32, e32x = gap(card32[key], cpu32[key]), gap(card32[key], exact)
+        log(f"{what} {key} {exact.shape}: max |value| "
             f"{scale:.4f}; card vs cpu float64 {e64:.3e} of max (limit "
             f"{SAM2_F64_TOL:.0e}); float32 card vs cpu {e32:.3e}, card vs "
             f"float64 {e32x:.3e}, cpu vs float64 {cpu_err:.3e}: limit "
             f"{limit:.3e}")
-        check(e64 <= SAM2_F64_TOL, f"sam2 {what} {key}: float64 card vs cpu")
         check(e32 <= limit and e32x <= limit,
-              f"sam2 {what} {key}: float32 card vs cpu")
-        check(np.isfinite(card32).all(), f"sam2 {what} {key}: finite")
+              f"{what} {key}: float32 card vs cpu")
 
 
 def phase_sam2_masker(work, pipe, preset="large"):
@@ -2399,7 +2434,9 @@ def phase_sam2_masker(work, pipe, preset="large"):
         return out
 
     t0 = time.perf_counter()
-    compare_sam2_card_cpu(run, f"{preset}/{cfg.image_size} view 0")
+    compare_card_cpu({(d, t): run(d, t) for d in ("cpu", "cuda")
+                      for t in (torch.float64, torch.float32)},
+                     f"sam2 {preset}/{cfg.image_size} view 0")
     log(f"sam2 {preset} view 0 card vs cpu: {time.perf_counter() - t0:.1f} s")
 
 
@@ -2557,6 +2594,439 @@ def phase_gs_tools(work, iters=(20, 40)):
     return launches
 
 
+# Phase 11's limits are phase 9a's (compare_card_cpu), against the largest
+# finite |value| of the CPU's output, the -inf positions (padded text
+# columns) equal, and the outputs after the query selection decoded from
+# the same picks (the CPU float64 run's) on both devices and in both dtypes.
+GDINO_SMALL = (64, 96)           # phase 11a's card-vs-CPU image (H, W)
+GDINO_STAGES = ("gdino.bert", "gdino.backbone", "gdino.encoder",
+                "gdino.query_selection", "gdino.decoder")
+GDINO_WORDS = ("main", "_", "object", "red", "car")
+
+
+def gdino_small_config():
+    """tests/test_gdino.py's small config (Swin embed 32, depths 1 each;
+    BERT 64 wide, 2 layers; 20 queries; 2 + 2 layers)."""
+    from gs2mesh_torch.gdino import GDINOConfig
+    from gs2mesh_torch.gdino.bert import BertConfig
+    from gs2mesh_torch.gdino.swin import SwinConfig
+
+    return GDINOConfig(
+        swin=SwinConfig(embed_dim=32, depths=(1, 1, 1, 1),
+                        num_heads=(1, 2, 4, 8)),
+        bert=BertConfig(hidden_size=64, num_layers=2, num_heads=2,
+                        intermediate_size=128),
+        num_queries=20, num_encoder_layers=2, num_decoder_layers=2)
+
+
+def write_gdino_vocab(path):
+    """A synthetic bert-base-uncased-shaped vocab.txt (30,522 lines:
+    [PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103, '.' 1012, '?'
+    1029, the caption's words from 2000 on); the released one is not in
+    the repository."""
+    vocab = [f"[unused{i}]" for i in range(30522)]
+    vocab[0], vocab[100], vocab[101], vocab[102], vocab[103] = (
+        "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+    vocab[1012], vocab[1029] = ".", "?"
+    for i, w in enumerate(GDINO_WORDS):
+        vocab[2000 + i] = w
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return path
+
+
+def gdino_flops(cfg, h, w, n_text):
+    """Multiply-adds x 2 of the products and attention of one forward of
+    ``cfg`` on an h x w input with n_text tokens (Swin windows over their
+    padded grids; the deformable sampling's 4 taps; the elementwise work
+    not counted)."""
+    ws, s = cfg.swin.window_size, cfg.swin
+    ops, H, W = 2 * (h // 4) * (w // 4) * 48 * s.embed_dim, h // 4, w // 4
+    levels = []
+    for i, depth in enumerate(s.depths):
+        C = s.embed_dim * 2 ** i
+        n = (-(-H // ws) * ws) * (-(-W // ws) * ws)
+        ops += depth * (24 * n * C * C + 4 * n * ws * ws * C)
+        if i in s.out_indices:
+            levels.append((H, W, C))
+        if i < len(s.depths) - 1:
+            ops += 2 * ((H + 1) // 2) * ((W + 1) // 2) * 4 * C * 2 * C
+            H, W = (H + 1) // 2, (W + 1) // 2
+    D = cfg.hidden_dim
+    for H, W, C in levels:
+        ops += 2 * H * W * C * D
+    H, W, C = levels[-1]
+    H, W = (H + 1) // 2, (W + 1) // 2
+    ops += 2 * H * W * 9 * C * D
+    S = sum(a * b for a, b, _ in levels) + H * W
+    b = cfg.bert
+    ops += b.num_layers * 2 * n_text * (4 * b.hidden_size ** 2
+                                        + 2 * b.hidden_size
+                                        * b.intermediate_size)
+    nq, taps = cfg.num_queries, 4 * 4 * 4 * 2 * D    # levels x points x taps
+    # value projection of nv tokens; offsets (256), weights (128) and
+    # output projection of n queries; 4 bilinear taps a sample
+    deform = lambda n, nv: 2 * (n * D * (D + 384) + nv * D * D) + n * taps
+    ops += cfg.num_encoder_layers * (
+        2 * S * D * 1024 * 3 + deform(S, S) + 4 * S * D * 2048)
+    ops += 2 * S * D * D * 4 + 2 * S * D * n_text
+    ops += cfg.num_decoder_layers * (
+        2 * nq * D * D * 6 + 4 * nq * nq * D + deform(nq, S)
+        + 4 * nq * D * 2048 + 2 * nq * D * D * 6)
+    return ops, S
+
+
+def gdino_seeded(cfg, seed=0):
+    from gs2mesh_torch.gdino import GDINO, init_gdino_
+
+    return init_gdino_(GDINO(cfg), torch.Generator().manual_seed(seed)
+                       ).eval()
+
+
+def compare_gdino_card_cpu(net, image, ids, what):
+    """Phase 11's card-vs-CPU check of GroundingDINO on ``image`` (a
+    preprocessed (1, H, W, 3) float32 CPU tensor) and ``ids`` ((1, nt)
+    token ids) at phase 9a's limits (compare_card_cpu): the float64 top-k
+    equal across devices; every run then decodes the CPU float64 run's
+    picks, so the float32 outputs after the selection are held on both
+    devices every time (near-tied logits may order apart in float32).
+    Returns how many of the card's own float32 picks differ from the
+    CPU's."""
+    outs = {("cpu", torch.float64): gdino_outputs(net, "cpu", torch.float64,
+                                                  image, ids)}
+    picks = outs[("cpu", torch.float64)]["topk"]
+    for dev, t in (("cuda", torch.float64), ("cpu", torch.float32),
+                   ("cuda", torch.float32)):
+        outs[(dev, t)] = gdino_outputs(net, dev, t, image, ids, picks)
+    topk = {k: v.pop("topk") for k, v in outs.items()}
+    check(np.array_equal(topk[("cuda", torch.float64)], picks),
+          f"gdino {what}: float64 top-k equal across devices")
+    n_diff = int((topk[("cpu", torch.float32)]
+                  != topk[("cuda", torch.float32)]).sum())
+    log(f"gdino {what}: float32 top-k indices that differ card vs cpu "
+        f"{n_diff}, cpu float32 vs float64 "
+        f"{int((topk[('cpu', torch.float32)] != picks).sum())}, of "
+        f"{picks.size}; every output decodes the cpu float64 picks")
+    compare_card_cpu(outs, f"gdino {what}")
+    return n_diff
+
+
+def gdino_outputs(net, dev, dtype, image, ids, topk=None):
+    """gdino_encode of a copy of ``net`` on ``dev`` in ``dtype`` (TF32 off),
+    then gdino_decode of ``topk`` (numpy, (1, nq); its own picks if None):
+    the outputs, the encoder memory, the selection logits and its own
+    picks ("topk") as numpy arrays."""
+    import copy
+
+    from gs2mesh_torch.core.precision import precision_scope
+    from gs2mesh_torch.gdino import (gdino_decode, gdino_encode,
+                                     prepare_text_inputs)
+
+    m = copy.deepcopy(net).to(dev, dtype)
+    with torch.no_grad(), precision_scope():
+        enc = gdino_encode(m, image.to(dev, dtype),
+                           *prepare_text_inputs(ids, m.cfg, dev))
+        out = gdino_decode(m, enc, enc["topk"] if topk is None
+                           else torch.from_numpy(topk).to(dev))
+    out.update((k, enc[k]) for k in ("memory", "enc_logits", "topk"))
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    del m, enc, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_gdino_checks():
+    """Phase 11a: the small GroundingDINO on the golden test's inputs
+    (tests/test_golden_fixtures.py: rng 3, a 64x96 image, ids [101, 5, 6,
+    1012, 7, 102]) on the card against the CPU, float64 and float32."""
+    net = gdino_seeded(gdino_small_config())
+    rng = np.random.default_rng(3)
+    rng.uniform(0, 255, (1, 3, 64, 96))
+    rng.uniform(0, 255, (1, 3, 64, 96))
+    img = torch.from_numpy(rng.normal(size=(1,) + GDINO_SMALL + (3,)).astype(
+        np.float32))
+    ids = np.array([[101, 5, 6, 1012, 7, 102]])
+    n_diff = compare_gdino_card_cpu(net, img, ids, f"small/{GDINO_SMALL[0]}x"
+                                    f"{GDINO_SMALL[1]}")
+    check(n_diff == 0, "gdino small: float32 top-k equal across devices")
+
+
+class _Stub:
+    """Accepts any call or attribute: matplotlib's figure, axes, canvas and
+    patches for a headless run of the interactive masker (the card's
+    machine has no matplotlib); records the canvas callbacks."""
+
+    def __init__(self):
+        self.callbacks = {}
+
+    def mpl_connect(self, name, fn):
+        self.callbacks[name] = fn
+
+    def __getattr__(self, name):
+        if name == "canvas":
+            return self
+        return lambda *a, **k: None
+
+
+def scripted_pyplot(events):
+    """Module stubs for matplotlib, matplotlib.pyplot and
+    matplotlib.patches whose show() plays ``events(ax)`` ((press, release)
+    pairs) through the figure's callbacks."""
+    import types
+
+    fig, ax = _Stub(), _Stub()
+    plt = types.ModuleType("matplotlib.pyplot")
+    plt.subplots = lambda **kw: (fig, ax)
+
+    def show(block=True):
+        for press, release in events(ax):
+            fig.callbacks["button_press_event"](press)
+            fig.callbacks["button_release_event"](release)
+
+    plt.show = show
+    patches = types.ModuleType("matplotlib.patches")
+    patches.Rectangle = lambda *a, **k: None
+    mpl = types.ModuleType("matplotlib")
+    mpl.pyplot, mpl.patches = plt, patches
+    return {"matplotlib": mpl, "matplotlib.pyplot": plt,
+            "matplotlib.patches": patches}
+
+
+def phase_gdino(work, pipe):
+    """Phase 11b and 11c: a seeded SwinT-OGC GroundingDINO written as
+    groundingdino_swint_ogc.pth (the released layout) beside a synthetic
+    vocab.txt; SAM2Masker(gdino_checkpoint=..., gdino_vocab=...,
+    sam2_checkpoint=<phase 9b's sam2_hiera_large.pt>, box_threshold=0.0)
+    .segment() over phase 8's 8 pass-1 views at 1554x1162; predict's ms cold
+    and warm, the forward's device ms by gdino.* range, peak memory, the
+    box and the masks; view 0 on the card against the CPU at full width;
+    then the interactive masker on view 0 with scripted events."""
+    import types
+
+    import gs2mesh_torch.gdino as gdino
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.gdino import released_state_dict
+    from gs2mesh_torch.gdino.inference import (preprocess_caption,
+                                               preprocess_image)
+    from gs2mesh_torch.pipeline import (Renderer, SAM2Masker,
+                                        run_interactive_masker)
+    from gs2mesh_torch.sam2.predictor import read_frame
+
+    base, colmap_dir, out_root, args = pipe
+    t0 = time.perf_counter()
+    net = gdino_seeded(gdino.GDINOConfig())
+    n_params = sum(p.numel() for p in net.parameters())
+    ckpt = os.path.join(work, "groundingdino_swint_ogc.pth")
+    torch.save({"model": released_state_dict(net.state_dict(),
+                                             prefix="module.")}, ckpt)
+    vocab = write_gdino_vocab(os.path.join(work, "vocab.txt"))
+    log(f"gdino SwinT-OGC: {n_params} parameters written to {ckpt} "
+        f"({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB, released layout) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sam2_ckpt = os.path.join(work, "sam2_hiera_large.pt")
+    r = Renderer(base, colmap_dir, out_root, args, device="cuda")
+    t0 = time.perf_counter()
+    masker = SAM2Masker(r, prompt="main_object", gdino_checkpoint=ckpt,
+                        gdino_vocab=vocab, sam2_checkpoint=sam2_ckpt,
+                        box_threshold=0.0, device="cuda")
+    log(f"gdino: SAM2Masker (SAM2-large) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # segment(): predict timed (the cold call), the prompt SAM2 gets.
+    plain_predict, plain_add = gdino.predict, masker.predictor \
+        .add_new_points_or_box
+    predict_ms, prompts = [], []
+
+    def timed_predict(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = plain_predict(*a, **kw)
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    def add(state, frame_idx, obj_id=0, **kw):
+        prompts.append(dict(kw, frame_idx=frame_idx))
+        return plain_add(state, frame_idx, obj_id, **kw)
+
+    boxes = []
+    plain_box = masker._gdino_box
+    masker._gdino_box = lambda img: boxes.append(plain_box(img)) or boxes[-1]
+    gdino.predict, masker.predictor.add_new_points_or_box = timed_predict, add
+    for i in range(len(r)):
+        os.remove(os.path.join(r.render_folder_name(i), "left_mask.npy"))
+        os.remove(os.path.join(r.render_folder_name(i), "left_mask.png"))
+    torch.cuda.synchronize()
+    resident_segment = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        masker.segment()
+        torch.cuda.synchronize()
+    finally:
+        gdino.predict = plain_predict
+        masker.predictor.add_new_points_or_box = plain_add
+        masker._gdino_box = plain_box
+    wall = time.perf_counter() - t0
+    peak_segment = (torch.cuda.max_memory_allocated() / 2 ** 30
+                    - resident_segment)
+    frame = read_frame(os.path.join(r.render_folder_name(0), "left.png"))
+    h, w = frame.shape[:2]
+    check(len(boxes) == 1 and boxes[0] is not None, "gdino: one view-0 box")
+    box = boxes[0]
+    log(f"gdino: segment() over {len(r)} views at {w}x{h}: wall {wall:.2f} "
+        f"s (predict cold {predict_ms[0]:.1f} ms); view-0 box "
+        f"{np.round(box, 2).tolist()}; peak device memory above the "
+        f"{resident_segment:.3f} GiB resident before it (SAM2-large) "
+        f"{peak_segment:.3f} GiB (GroundingDINO loaded, predict, SAM2's "
+        f"tracking)")
+    check(np.isfinite(box).all() and 0 <= box[0] < box[2] <= w
+          and 0 <= box[1] < box[3] <= h, f"gdino box {box} inside the "
+          f"{w}x{h} image")
+    check(len(prompts) == 1 and prompts[0]["frame_idx"] == 0
+          and np.array_equal(prompts[0]["box"], box)
+          and prompts[0].get("points") is None,
+          "gdino: its box seeded SAM2 on view 0")
+    fills = []
+    for i in range(len(r)):
+        view = r.render_folder_name(i)
+        m = np.load(os.path.join(view, "left_mask.npy"))
+        png = read_png(os.path.join(view, "left_mask.png"))
+        check(m.dtype == np.bool_ and m.shape == (r.left_cameras[i]["height"],
+                                                  r.left_cameras[i]["width"]),
+              f"gdino view {i}: mask {m.dtype} {m.shape}")
+        check(png.shape == m.shape and np.array_equal(png > 0, m),
+              f"gdino view {i}: left_mask.png")
+        fills.append(float(m.mean()))
+    log(f"gdino: mask fill {['%.3f' % f for f in fills]}")
+
+    # predict warm: 3 calls, CUDA-synchronised; then one forward profiled.
+    model, tokenizer = masker._gdino
+    ids = np.asarray(tokenizer(preprocess_caption(masker.prompt))
+                     ["input_ids"])
+    warm = []
+    torch.cuda.synchronize()
+    resident_predict = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gdino.predict(model, frame, masker.prompt, box_threshold=0.0,
+                      tokenizer=tokenizer)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    peak_predict = (torch.cuda.max_memory_allocated() / 2 ** 30
+                    - resident_predict)
+    x = preprocess_image(frame, "cuda")
+    ops, S = gdino_flops(model.cfg, x.shape[1], x.shape[2], ids.size)
+    from gs2mesh_torch.core.precision import precision_scope
+    from gs2mesh_torch.gdino import gdino_forward, prepare_text_inputs
+    text = prepare_text_inputs(ids, model.cfg, "cuda")
+
+    def forward():
+        with torch.no_grad(), precision_scope():
+            return gdino_forward(model, x, *text)
+
+    fwd_ms = cuda_time_ms(forward, 3)
+    log(f"gdino predict at {w}x{h} -> {x.shape[2]}x{x.shape[1]} ({S} "
+        f"tokens, {ids.size} text tokens): cold {predict_ms[0]:.1f} ms, warm "
+        f"{['%.1f' % t for t in warm]} ms (median {np.median(warm):.1f}); "
+        f"forward {fwd_ms:.2f} device ms (CUDA events), "
+        f"{ops / 1e9:.1f} GFLOP of products ({ops / fwd_ms / 1e9:.1f} "
+        f"TFLOP/s against the FP32 peak {PEAK_OPS_PER_S['fp32'] / 1e12:.0f}"
+        f"); GroundingDINO's working memory over a predict (peak above the "
+        f"{resident_predict:.3f} GiB resident: both models' weights and "
+        f"the masker's state) {peak_predict:.3f} GiB")
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    report_profile(prof, wall_us, 1, "forward")
+    dev, host = range_times(prof, 1, ("gdino",))
+    for name in GDINO_STAGES + ("outside",):
+        log(f"  {name:22s} device {dev.get(name, 0.0):8.3f} ms, host "
+            f"{host.get(name, 0.0):8.3f} ms")
+    check(all(dev.get(s, 0.0) > 0 for s in GDINO_STAGES),
+          "gdino: every stage ran on the device")
+
+    # View 0 at full width on the card against the CPU.
+    t0 = time.perf_counter()
+    net = model.cpu()
+    masker._gdino = None
+    torch.cuda.empty_cache()
+    x_cpu = preprocess_image(frame, "cpu")
+    check(torch.equal(x_cpu, x.cpu()), "gdino: preprocess_image equal on "
+          "card and cpu")
+    compare_gdino_card_cpu(net, x_cpu, ids, f"SwinT-OGC {x.shape[2]}x"
+                           f"{x.shape[1]} view 0")
+    del net
+    log(f"gdino view 0 card vs cpu: {time.perf_counter() - t0:.1f} s")
+
+    # 11c: the interactive masker on view 0 with scripted events.
+    ev = lambda ax, x, y, b: types.SimpleNamespace(inaxes=ax, xdata=x,
+                                                    ydata=y, button=b)
+
+    def events(ax):
+        return [(ev(ax, w / 2, h / 2, 1), ev(ax, w / 2 + 1, h / 2, 1)),
+                (ev(ax, 0.2 * w, 0.15 * h, 1), ev(ax, 0.8 * w, 0.85 * h, 1)),
+                (ev(ax, 0.35 * w, 0.4 * h, 3), ev(ax, 0.35 * w, 0.4 * h, 3)),
+                (ev(ax, 0.5 * w, 0.7 * h, 1), ev(ax, 0.5 * w, 0.7 * h, 1)),
+                # a middle-click on the negative point, far from the box
+                (ev(ax, 0.35 * w + 1, 0.4 * h - 1, 2),
+                 ev(ax, 0.35 * w + 1, 0.4 * h - 1, 2))]
+
+    preview_ms = []
+    plain_preview = masker.preview_mask
+
+    def preview(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = plain_preview(*a, **kw)
+        torch.cuda.synchronize()
+        preview_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    masker.preview_mask = preview
+    saved = {k: sys.modules.get(k) for k in ("matplotlib",
+                                             "matplotlib.pyplot",
+                                             "matplotlib.patches")}
+    sys.modules.update(scripted_pyplot(events))
+    for i in range(len(r)):
+        os.remove(os.path.join(r.render_folder_name(i), "left_mask.npy"))
+    t0 = time.perf_counter()
+    try:
+        seeder = run_interactive_masker(r, masker)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+        masker.preview_mask = plain_preview
+    wall = time.perf_counter() - t0
+    pts, lbl, sbox = seeder.seeds()
+    log(f"gdino interactive masker on view 0: {len(preview_ms)} redraws, "
+        f"preview_mask ms {['%.1f' % t for t in preview_ms]} (the first "
+        f"encodes the view); seeds points {pts.tolist()} labels "
+        f"{lbl.tolist()} box {np.round(sbox, 1).tolist()}; "
+        f"run_interactive_masker wall {wall:.2f} s")
+    check(len(preview_ms) == 5 and list(lbl) == [1, 1]
+          and seeder.mask is not None and seeder.mask.shape == (h, w),
+          "interactive masker: 5 previews, 2 positive points, a box")
+    check(np.array_equal(masker.box, sbox) and np.array_equal(
+        masker.points, pts), "interactive masker: its seeds reached SAM2")
+    for i in range(len(r)):
+        m = np.load(os.path.join(r.render_folder_name(i), "left_mask.npy"))
+        check(m.dtype == np.bool_ and m.shape == (r.left_cameras[i]["height"],
+                                                  r.left_cameras[i]["width"]),
+              f"interactive masker view {i}: mask {m.dtype} {m.shape}")
+
+
 def main():
     global SAVE_FORWARD_DIR
     import argparse
@@ -2649,8 +3119,15 @@ def main():
     for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
         row["launches_gs_tools"] = tools[key]
     log(f"phase gs tools: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_gdino_checks()
+    phase_gdino(work, pipe_tree)
+    log(f"phase gdino: {time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work)
 
+    # The card again, so that the end of a long log carries it beside the
+    # numbers above.
+    log(f"card: {smi.stdout.strip().splitlines()[0]}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

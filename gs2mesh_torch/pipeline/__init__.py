@@ -19,9 +19,11 @@ from gs2mesh_torch.pipeline.renderer_stage import Renderer
 from gs2mesh_torch.pipeline.stereo_stage import Stereo
 from gs2mesh_torch.pipeline.masker_stage import (CopyMasker, FullMasker, Masker,
                                                  SAM2Masker, init_predictor)
+from gs2mesh_torch.pipeline.masker_ui import (InteractiveSeeder,
+                                              run_interactive_masker)
 from gs2mesh_torch.pipeline.tsdf_stage import TSDF
 
 __all__ = ["PipelineArgs", "encode_string", "make_parser", "create_strings",
            "prepare_eval", "write_to_csv", "Renderer", "Stereo", "Masker",
            "TSDF", "FullMasker", "CopyMasker", "SAM2Masker",
-           "init_predictor"]
+           "init_predictor", "InteractiveSeeder", "run_interactive_masker"]

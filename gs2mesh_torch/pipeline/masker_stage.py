@@ -6,10 +6,9 @@ Port of gs2mesh_tpu pipeline/masker_stage.py (the reference's
 gs2mesh_utils/masker_utils.py): ``CopyMasker`` (dataset-provided masks, the
 DTU/MobileBrick path of run_single.py:119-147) and ``FullMasker``
 (all-ones masks for mask-free datasets) and ``SAM2Masker`` (SAM2 video
-propagation from a box or points on view 0; gs2mesh_utils/masker_utils.py:
-42-359). PNGs are read and written by the port's own codec
-(``core/png.py``). GroundingDINO's text-prompt box is not ported yet
-(ROADMAP A15): a ``gdino_checkpoint`` raises.
+propagation from a view-0 box or points: given, GroundingDINO's box for a
+text prompt, or the whole image; gs2mesh_utils/masker_utils.py:42-359).
+PNGs are read and written by the port's own codec (``core/png.py``).
 """
 
 from __future__ import annotations
@@ -103,26 +102,31 @@ class FullMasker(Masker):
 
 class SAM2Masker(Masker):
     """SAM2 video mask propagation (masker_utils.py:42-359) on the port's
-    SAM2 (gs2mesh_torch.sam2). The view-0 prompt is an explicit ``box`` /
-    ``points`` seed, else a whole-image box (2% margins). ``prompt`` is the
-    GroundingDINO text prompt, kept for when that model is ported."""
+    SAM2 (gs2mesh_torch.sam2). The view-0 prompt is, in this order: an
+    explicit ``box`` / ``points`` seed; the best box GroundingDINO
+    (gs2mesh_torch.gdino) finds for the text ``prompt`` when a
+    ``gdino_checkpoint`` file (the released groundingdino_swint_ogc.pth)
+    exists, the caption tokenized with the ``gdino_vocab`` vocab.txt; a
+    whole-image box (2% margins)."""
 
     def __init__(self, renderer, prompt: str = "main_object",
                  box: Optional[np.ndarray] = None,
                  points: Optional[np.ndarray] = None,
                  labels: Optional[np.ndarray] = None,
+                 box_threshold: float = 0.35, text_threshold: float = 0.25,
                  sam2_checkpoint: Optional[str] = None, sam2_model=None,
-                 gdino_checkpoint: Optional[str] = None, device="cuda"):
+                 gdino_checkpoint: Optional[str] = None,
+                 gdino_vocab: Optional[str] = None, device="cuda"):
         super().__init__(renderer)
-        if gdino_checkpoint:
-            raise NotImplementedError(
-                "GroundingDINO text prompts are not ported yet (ROADMAP "
-                "A15); give SAM2Masker a box or points, or neither for a "
-                "whole-image box")
         self.prompt = prompt
         self.box = box
         self.points = points
         self.labels = labels
+        self.box_threshold = box_threshold
+        self.text_threshold = text_threshold
+        self._gdino_ckpt = gdino_checkpoint
+        self._gdino_vocab = gdino_vocab
+        self._gdino = None
 
         from gs2mesh_torch.sam2 import (SAM2Config, SAM2VideoPredictor,
                                         load_sam2_checkpoint)
@@ -140,6 +144,27 @@ class SAM2Masker(Masker):
                        SAM2Config.large())
             sam2_model = load_sam2_checkpoint(sam2_checkpoint, cfg)
         self.predictor = SAM2VideoPredictor(sam2_model, device=device)
+
+    def _gdino_box(self, img: np.ndarray) -> Optional[np.ndarray]:
+        """GroundingDINO's best box for ``prompt`` on ``img`` as pixel xyxy
+        (masker_utils.py:133-162), or None when the checkpoint file is
+        missing or no box passes ``box_threshold``. The model and the
+        tokenizer load once, the model onto the masker's device."""
+        if not self._gdino_ckpt or not os.path.exists(self._gdino_ckpt):
+            return None
+        from gs2mesh_torch.gdino import (best_box_xyxy, load_gdino_checkpoint,
+                                         load_tokenizer, predict)
+
+        if self._gdino is None:
+            model = load_gdino_checkpoint(self._gdino_ckpt)
+            self._gdino = (model.to(self.predictor.core.device).eval(),
+                           load_tokenizer(self._gdino_vocab))
+        model, tokenizer = self._gdino
+        boxes, scores, _ = predict(model, img, caption=self.prompt,
+                                   box_threshold=self.box_threshold,
+                                   text_threshold=self.text_threshold,
+                                   tokenizer=tokenizer)
+        return best_box_xyxy(boxes, scores, img.shape[:2])
 
     def preview_mask(self, image: np.ndarray, points=None, labels=None,
                      box=None) -> np.ndarray:
@@ -167,6 +192,8 @@ class SAM2Masker(Masker):
             for i in range(len(self.renderer))]
         state = self.predictor.init_state(frames=frames)
         box = self.box
+        if box is None and self.points is None and self._gdino_ckpt:
+            box = self._gdino_box(frames[0])
         if box is None and self.points is None:
             h, w = frames[0].shape[:2]
             box = np.array([0.02 * w, 0.02 * h, 0.98 * w, 0.98 * h])
@@ -183,7 +210,8 @@ SAM2_CHECKPOINT = os.path.join("third_party", "segment-anything-2",
 
 def init_predictor(base_dir, renderer, args, sam2_checkpoint=None,
                    gdino_checkpoint=None, device="cuda", **kw):
-    """Factory of masker_utils.init_predictor (masker_utils.py:42-69). With
+    """Factory of masker_utils.init_predictor (masker_utils.py:42-69): the
+    text prompt from ``args``, ``gdino_checkpoint`` passed through. With
     no ``sam2_checkpoint`` it takes the reference's
     ``<base_dir>/third_party/segment-anything-2/checkpoints/
     sam2_hiera_large.pt`` where that file exists (SAM2Masker raises

@@ -67,8 +67,12 @@ def test_scan_sees_the_port():
                    "sfm/__init__", "sfm/colmap_driver",
                    "evals/__init__", "evals/geometry", "evals/dtu",
                    "evals/tnt", "evals/mobilebrick", "native/__init__",
-                   "cli/run_pipeline", "cli/drivers", "cli/preprocess"):
+                   "cli/run_pipeline", "cli/drivers", "cli/preprocess",
+                   "pipeline/masker_ui"):
         assert f"gs2mesh_torch/{module}.py" in names
+    for gdino in ("__init__", "deform", "swin", "bert", "tokenizer",
+                  "fusion", "transformer", "model", "convert", "inference"):
+        assert f"gs2mesh_torch/gdino/{gdino}.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -110,7 +110,8 @@ def test_preview_mask_matches_jax(tmp_path, weights):
 def test_checkpoint_presets_and_errors(tmp_path, weights, monkeypatch):
     """The preset comes from the checkpoint's name as in JAX; no weights
     raise the same ValueError in both packages (JAX's init_predictor passes
-    no checkpoint); a GroundingDINO checkpoint raises until it is ported."""
+    no checkpoint); a GroundingDINO checkpoint that is not there gives no
+    box, as in JAX (segment() then takes the whole-image box)."""
     views = Views(str(tmp_path / "v"), 1)
     path = str(tmp_path / "sam2_hiera_tiny.pt")
     torch.save({"model": net_state(weights)}, path)
@@ -121,9 +122,13 @@ def test_checkpoint_presets_and_errors(tmp_path, weights, monkeypatch):
         jmasker.init_predictor(str(tmp_path), views, args)
     with pytest.raises(ValueError, match="sam2_checkpoint"):
         masker_stage.init_predictor(str(tmp_path), views, args, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        masker_stage.SAM2Masker(views, sam2_model=weights[0], device="cpu",
+    m = masker_stage.SAM2Masker(views, sam2_model=weights[0], device="cpu",
                                 gdino_checkpoint="groundingdino.pth")
+    frame = read_png(os.path.join(views.render_folder_name(0), "left.png"))
+    assert m._gdino_box(frame) is None
+    assert jmasker.SAM2Masker(
+        views, sam2_params=weights[1], sam2_cfg=JConfig.tiny(image_size=IMG),
+        gdino_checkpoint="groundingdino.pth")._gdino_box(frame) is None
     # The reference's checkpoint location under base_dir is found, and its
     # name picks the large preset.
     default = os.path.join(str(tmp_path), masker_stage.SAM2_CHECKPOINT)
