@@ -147,8 +147,37 @@ Phases (any failure raises, and the script exits non-zero):
      matplotlib modules playing 5 scripted clicks and drags: 5 redraws
      through preview_mask (SAM2-large, ms each), the seeds reaching
      segment(), every mask;
- 12. the card's name and power limit again, the "kernels" JSON line, and
-     the last line: {"ok": true, "device": {...}}.
+ 12. the strided tile-row mode (the multi-rank step's slices): (a) every
+     slice of G = 2, 4, 8 of phase 3's 60k narrow scene, K1 bit-exact, K2,
+     K3 and K4 at phase 3's limits against their plain versions; (b) on
+     phase 4's serving view, K1 and K2 slice by slice, the stitched colour
+     and final_T bit-equal to the unsharded K2 render, the slices' pairs
+     summing to the unsharded count (balance printed), K3 + K4 per slice
+     summed over the slices within phase 3's K3 limits of the unsharded
+     gradient, each kernel's ms per slice beside per-slice bounds;
+ 13. ShardedTrainer on a (1 x 1) mesh over NCCL (a world of one from a file
+     store under smoke_out/), phase 6's 25 steps on phase 6's scene beside
+     Trainer: first-step params within 5e-5, every loss within 1e-4
+     relative, the alive count around the densify equal, K1-K4 once per
+     step, both step walls;
+ 14. make_sharded_dlnr on two served stereo pairs at 960x576 (10
+     iterations) and make_sharded_integrate on phase 5c's 20-view sphere,
+     against the unsharded calls (1e-5; bit-equal);
+ 15. ViewerServer(device="cuda") on phase 4's PLY at 960x540: /, /info and
+     20 /render at seeded orbit poses, each PNG byte-equal to the quantised
+     K1/K2 render of its camera, K1 / K2 once per request; ms a request,
+     the render's device ms and the PNG encode ms;
+ 16. gs_train(gui=True) on phase 10's scene for 10 iterations with a
+     scripted SIBR client asking for 960x576 frames (byte counts, verify
+     string), once more without a client; the final model's frame equal
+     to a direct render; ms a frame and the step with and without the
+     client;
+ 17. profile_trace around 3 renders (the Chrome trace names K1 and K2),
+     time_block on a render, view_results_panel on view 0's stereo outputs;
+ 18. the card's name and power limit again, the "kernels" JSON line (K1-K3
+     with their strided ms and bounds per G; every kernel with its
+     launches on the viewer, GUI and sharded paths), and the last line:
+     {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
@@ -267,13 +296,14 @@ def compare_composite(color_k, T_k, color_p, T_p, what):
     return max_err
 
 
-def compare_emission(em_k, em_p, num_tiles, what):
+def compare_emission(em_k, em_p, num_tiles, what, key_tiles=None):
     from gs2mesh_torch.ops.rasterizer.emit import sort_pairs
 
     check(int(em_k.num_pairs) == int(em_p.num_pairs), f"{what}: num_pairs")
     check(torch.equal(em_k.keys, em_p.keys), f"{what}: K1 keys")
     check(torch.equal(em_k.ids, em_p.ids), f"{what}: K1 ids")
-    sk, sp = sort_pairs(em_k, num_tiles), sort_pairs(em_p, num_tiles)
+    sk, sp = (sort_pairs(em_k, num_tiles, key_tiles),
+              sort_pairs(em_p, num_tiles, key_tiles))
     for f in ("ids", "tile_starts", "tile_counts"):
         check(torch.equal(getattr(sk, f), getattr(sp, f)),
               f"{what}: sorted {f}")
@@ -1156,7 +1186,7 @@ def phase_timings(r, launches):
     for key, (ms, _, nb, nops) in dense.items():
         log(f"{what}: {key.upper()} {ms:.4f} ms against a bound of "
             f"{bound(nb, nops)[0]:.4f} ms ({bound(nb, nops)[1]})")
-    return rows, dense
+    return rows, dense, dict(eargs=eargs, plain=plain)
 
 
 OWN_KERNELS = {"K1": "emit_pairs_kernel", "K2": "composite_forward_kernel",
@@ -3027,6 +3057,676 @@ def phase_gdino(work, pipe):
               f"interactive masker view {i}: mask {m.dtype} {m.shape}")
 
 
+# ------------------------------------------------------------ phases 12-17
+# The strided tile-row mode of K1-K3, the sharded trainer and inference in
+# a world of one, the viewer, the SIBR network GUI, utils / viz.
+
+STRIDES = (2, 4, 8)
+
+
+def strided_forward(eargs, G, ax, capacity=None):
+    """K1 -> sort -> K2 on rank ax's strided slice of the emission inputs,
+    the slice's sort key sized for the whole image (so each tile orders its
+    pairs as the unsharded render does)."""
+    import dataclasses
+
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import emission_cuda, sort_pairs
+    from gs2mesh_torch.parallel.sharded_train import local_rects, slice_rows
+
+    feat9, depths, rect, tt, W, H, cfg = eargs
+    gx, gy = cfg.grid_size(W, H)
+    rows_per, h_slice = slice_rows(H, cfg, G)
+    rect_loc, tiles_loc = local_rects(rect, tt, rows_per, ax, G)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, pair_capacity=capacity)
+    sargs = (feat9, depths, rect_loc, tiles_loc, W, h_slice, cfg, ax, G,
+             gx * gy)
+    em = emission_cuda(*sargs)
+    pairs = sort_pairs(em, gx * rows_per, key_tiles=gx * gy)
+    strided = dict(row_offset=ax, row_stride=G)
+    color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
+                                    pairs.tile_counts, feat9, W, h_slice, cfg,
+                                    **strided)
+    return dict(sargs=sargs, em=em, pairs=pairs, color=color,
+                final_T=final_T, tiles_loc=tiles_loc, rows_per=rows_per,
+                h_slice=h_slice, cfg=cfg, W=W, strided=strided,
+                num_tiles=gx * rows_per, key_tiles=gx * gy)
+
+
+def strided_backward(s, feat9, dC, dT):
+    """K3 (with its fill) on a strided slice: per-pair rows at its emission
+    slots."""
+    from gs2mesh_torch.ops.rasterizer.composite import composite_backward_cuda
+
+    p = s["pairs"]
+    return composite_backward_cuda(
+        p.ids, p.order, p.tile_starts, p.tile_counts, p.num_pairs, feat9,
+        s["color"], s["final_T"], dC, dT, s["W"], s["h_slice"], s["cfg"],
+        **s["strided"])
+
+
+def phase_strided_vs_plain(narrow):
+    """Phase 12a: each strided kernel against its plain version on phase
+    3's 60k narrow-splat scene at 360x200 (7 tile rows: at G = 8 one slice
+    owns none), every slice of G = 2, 4, 8: K1 bit-exact, K2 2e-5, K3 / K4
+    at compare_backward's limits."""
+    from gs2mesh_torch.ops.rasterizer.emit import (emission_plain,
+                                                   segment_sum_cuda)
+    from gs2mesh_torch.ops.rasterizer.tile_render import (
+        composite_backward_plain, composite_plain, pair_rows)
+
+    _, _, feat9, prep, _, _, W, H, cfg = narrow
+    eargs = (feat9, prep.depths, prep.rect, prep.tiles_touched, W, H, cfg)
+    errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "k4": 0.0}
+    with torch.no_grad():
+        for G in STRIDES:
+            for ax in range(G):
+                what = f"60k narrow/360x200 G={G} slice {ax}"
+                s = strided_forward(eargs, G, ax)
+                p = s["pairs"]
+                _, e1 = compare_emission(s["em"], emission_plain(*s["sargs"]),
+                                         s["num_tiles"], what,
+                                         key_tiles=s["key_tiles"])
+                if int(p.num_pairs) == 0:
+                    check(bool((s["final_T"] == 1).all())
+                          and not bool(s["color"].ne(0).any()),
+                          f"{what}: an empty slice composites to T = 1")
+                    log(f"{what}: empty (no tile row of the image)")
+                    continue
+                rows = pair_rows(feat9, p.ids)
+                mpt = int(p.tile_counts.max())
+                plain = composite_plain(rows, p.tile_starts, p.tile_counts, W,
+                                        s["h_slice"], cfg, mpt,
+                                        **s["strided"])
+                e2 = compare_composite(s["color"], s["final_T"], plain.color,
+                                       plain.final_T, what)
+                dC, dT = loss_cotangents(s["color"], s["final_T"])
+                k3 = strided_backward(s, feat9, dC, dT)
+                k4 = segment_sum_cuda(k3, p.offsets, s["tiles_loc"])
+                plain3 = torch.zeros_like(k3)
+                plain3[p.order] = composite_backward_plain(
+                    rows, p.tile_starts, p.tile_counts, dC, dT, W,
+                    s["h_slice"], cfg, mpt, **s["strided"])
+                e3, e4 = compare_backward(k3, k4, plain3, p, s["tiles_loc"],
+                                          what)
+                for k, e in zip(errs, (e1, e2, e3, e4)):
+                    errs[k] = max(errs[k], e)
+    log(f"strided kernels vs plain, largest errors over every slice: {errs}")
+    return errs
+
+
+def slice_tile_sums(per_tile, G, ax, gx, gy):
+    """Sum of a (T,) per-tile count over the global tile rows rank ax owns."""
+    rows = torch.arange(ax, gy, G, device=per_tile.device)
+    return int(per_tile.reshape(gy, gx)[rows].sum())
+
+
+def phase_strided(serving):
+    """Phase 12: K1 and K2 slice by slice on phase 4's serving view (300k
+    SH-3, 960x576) for G = 2, 4, 8: the stitched colour and final_T
+    bit-equal to the unsharded K2 render, the slices' pairs summing to the
+    unsharded count, K3 per slice with K4 per slice summed over the slices
+    within compare_backward's limits of the unsharded K3 + K4 gradient; each
+    kernel's ms per slice beside per-slice bounds counted as for the
+    unsharded rows (K2 / K3 operations from phase 5's plain per-tile
+    counts, feat9 bytes for the rows each slice's pairs gather). Each
+    slice's capacity is its largest slice's pair count
+    rounded up to 64Ki. Returns {G: numbers} for the kernels line."""
+    from gs2mesh_torch.ops.rasterizer.emit import segment_sum_cuda
+    from gs2mesh_torch.parallel.sharded_train import (image_slice,
+                                                      local_rects, slice_rows,
+                                                      stitch_slices)
+
+    eargs, plain = serving["eargs"], serving["plain"]
+    feat9, depths, rect, tt, W, H, cfg = eargs
+    N = feat9.shape[0]
+    gx, gy = cfg.grid_size(W, H)
+    out = {}
+    with torch.no_grad():
+        em, pairs, color, final_T = run_forward_kernels(eargs)
+        dC, dT = loss_cotangents(color, final_T)
+        k3, k4 = run_backward_kernels(pairs, feat9, tt, color, final_T, dC,
+                                      dT, W, H, cfg)
+        n_all = int(em.num_pairs)
+        for G in STRIDES:
+            what = f"300k/960x576 strided G={G}"
+            rows_per, h_slice = slice_rows(H, cfg, G)
+            counts = [int(local_rects(rect, tt, rows_per, ax, G)[1].sum())
+                      for ax in range(G)]
+            cap = -(-max(counts) // (1 << 16)) * (1 << 16)
+            slices = [strided_forward(eargs, G, ax, cap) for ax in range(G)]
+            c = stitch_slices([s["color"] for s in slices], H, cfg.tile)
+            t = stitch_slices([s["final_T"][None] for s in slices], H,
+                              cfg.tile)[0]
+            same = torch.equal(c, color) and torch.equal(t, final_T)
+            n_diff = int((c != color).sum() + (t != final_T).sum())
+            pairs_s = [int(s["em"].num_pairs) for s in slices]
+            live = [int(s["pairs"].tile_counts.sum()) for s in slices]
+            log(f"{what}: stitched K2 colour / final_T bit-equal to the "
+                f"unsharded render: {same} ({n_diff} values differ); pairs "
+                f"per slice {pairs_s} (sum {sum(pairs_s)}, unsharded "
+                f"{n_all}; capacity {cap}); live pairs per slice max / mean "
+                f"{max(live) / np.mean(live):.3f}")
+            check(same, f"{what}: stitched render differs in {n_diff} values")
+            check(sum(pairs_s) == n_all and pairs_s == counts,
+                  f"{what}: slice pairs {pairs_s} vs {n_all}")
+            check(not any(bool(s["em"].overflow) for s in slices),
+                  f"{what}: slice overflow")
+            grad = torch.zeros_like(k4)
+            cots = []
+            for ax, s in enumerate(slices):
+                dC_s = image_slice(dC, G, ax, h_slice, cfg.tile)
+                dT_s = image_slice(dT[None], G, ax, h_slice, cfg.tile)[0]
+                r3 = strided_backward(s, feat9, dC_s, dT_s)
+                grad += segment_sum_cuda(r3, s["pairs"].offsets,
+                                         s["tiles_loc"])
+                cots.append((dC_s, dT_s))
+            scale = k4.abs().amax(0)
+            gap = (grad - k4).abs()
+            share = float((gap <= 2e-3 * k4.abs() + 1e-4 * scale)
+                          .float().mean())
+            rel = float((gap / scale.clamp_min(1e-30)).max())
+            log(f"{what}: K3 per slice + K4 per slice summed over the "
+                f"slices vs the unsharded K3 + K4: {100 * share:.5f}% within "
+                f"tolerance, largest gap / column max {rel:.3e}, max abs err "
+                f"{float(gap.max()):.3e}")
+            check(share >= 0.999 and rel <= 1e-3,
+                  f"{what}: summed slice gradients disagree")
+
+            ms = {"k1": [], "k2": [], "k3": []}
+            bounds = {"k1": [], "k2": [], "k3": []}
+            for ax, (s, (dC_s, dT_s)) in enumerate(zip(slices, cots)):
+                p = s["pairs"]
+                ms["k1"].append(cuda_time_ms(
+                    lambda: strided_forward_k1(s), 20, queued=True))
+                ms["k2"].append(cuda_time_ms(
+                    lambda: strided_forward_k2(s, feat9), 20, queued=True))
+                ms["k3"].append(cuda_time_ms(
+                    lambda: strided_backward(s, feat9, dC_s, dT_s), 10,
+                    queued=True))
+                n_live = int(p.tile_counts.sum())
+                # The feat9 rows this slice's live pairs gather.
+                n_rows = int(torch.unique(p.ids[:n_live]).numel())
+                ev = slice_tile_sums(plain.tile_evaluated, G, ax, gx, gy)
+                acc = slice_tile_sums(plain.tile_accepted, G, ax, gx, gy)
+                ops2 = ev * OPS_PER_EVAL + acc * K2_OPS_PER_ACCEPTED
+                ops3 = ev * OPS_PER_EVAL + acc * K3_OPS_PER_ACCEPTED
+                px = W * h_slice
+                tiles = gx * rows_per
+                bounds["k1"].append(bound(*emission_work(
+                    N, cap, int(p.num_pairs)))[0])
+                bounds["k2"].append(bound(
+                    n_live * 4 + tiles * 8 + n_rows * 36 + 4 * px * 4,
+                    ops2)[0])
+                bounds["k3"].append(bound(
+                    n_live * (4 + 8 + 36) + n_rows * 36 + 8 * px * 4
+                    + tiles * 8, ops3)[0])
+            for k in ms:
+                log(f"{what}: {k.upper()} ms per slice "
+                    + ", ".join(f"{v:.4f}" for v in ms[k])
+                    + " (mean {:.4f}); bound per slice ".format(
+                        np.mean(ms[k]))
+                    + ", ".join(f"{v:.4f}" for v in bounds[k]))
+            out[G] = dict(ms=ms, bounds=bounds, pairs=pairs_s,
+                          balance=max(live) / np.mean(live), capacity=cap,
+                          grad_err=float(gap.max()))
+    return out
+
+
+def strided_forward_k1(s):
+    from gs2mesh_torch.ops.rasterizer.emit import emission_cuda
+
+    return emission_cuda(*s["sargs"])
+
+
+def strided_forward_k2(s, feat9):
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+
+    p = s["pairs"]
+    return composite_cuda(p.ids, p.tile_starts, p.tile_counts, feat9, s["W"],
+                          s["h_slice"], s["cfg"], **s["strided"])
+
+
+def init_world_one(work):
+    """A process group of one rank over NCCL, from a file store."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"file://{work}/dist_store",
+                            world_size=1, rank=0)
+    check(dist.get_backend() == "nccl", "NCCL backend")
+
+
+def phase_sharded_train(work):
+    """Phase 13: ShardedTrainer on a (1 x 1) mesh over NCCL, phase 6's 25
+    steps (from 3090, a densify at 3100, an opacity reset after 20) on phase
+    6's scene, beside the single-device Trainer on the same seeds: the first
+    step's params within atol 5e-5, every step's loss within 1e-4 relative,
+    the alive count after the densify equal, K1-K4 once per taken step; the
+    step walls side by side. Returns the sharded run's launches."""
+    from gs2mesh_torch.models.gaussians import GaussianModel
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig
+    from gs2mesh_torch.parallel import ShardedTrainer, make_mesh
+    from gs2mesh_torch.train.scene import load_colmap_scene
+    from gs2mesh_torch.train.trainer import TrainConfig, Trainer
+
+    scene = load_colmap_scene(os.path.join(work, "train_scene"),
+                              device="cuda")
+    mesh = make_mesh(1, 1, "cuda")
+    rcfg = RasterizerConfig(pair_capacity=1 << 22)
+    runs = {}
+    counters = kernel_counts()
+    for name in ("trainer", "sharded"):
+        model = GaussianModel.from_point_cloud(
+            scene.points, scene.colors,
+            spatial_lr_scale=scene.nerf_norm_radius, device="cuda")
+        kw = dict(model=model, cameras=scene.cameras, images=scene.images,
+                  cfg=TrainConfig(), rcfg=rcfg,
+                  scene_extent=scene.nerf_norm_radius)
+        tr = (Trainer(**kw, device="cuda") if name == "trainer"
+              else ShardedTrainer(mesh=mesh, **kw))
+        rec = dict(loss=[], ms=[], alive={}, first=None)
+        last = [None]
+
+        def cb(t, out, rec=rec):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            rec["ms"].append((now - last[0]) * 1e3)
+            last[0] = now
+            rec["loss"].append(float(out.loss))
+            if rec["first"] is None:
+                rec["first"] = [p.detach().clone()
+                                for p in t.model.params.tensors()]
+            if t.iteration in (3099, 3100):
+                rec["alive"][t.iteration] = t.num_alive()
+
+        tr.iteration = 3090
+        for k in counters.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        tr.train(20, callback=cb)
+        tr.reset_opacity()
+        tr.train(5, callback=cb)
+        torch.cuda.synchronize()
+        rec["launches"] = {k: c.launches for k, c in counters.items()}
+        runs[name] = rec
+        del tr, model
+    a, b = runs["trainer"], runs["sharded"]
+    p_err = max(float((x - y).abs().max()) if x.numel() else 0.0
+                for x, y in zip(a["first"], b["first"]))
+    l_err = max(abs(x - y) / abs(x) for x, y in zip(a["loss"], b["loss"]))
+    steady = [i for i in range(1, 25) if i not in (9, 20)]
+    log(f"sharded (1x1, NCCL) vs Trainer over 25 steps: first-step params "
+        f"max abs diff {p_err:.3e} (limit 5e-5), loss max relative diff "
+        f"{l_err:.3e} (limit 1e-4), alive before / after the densify "
+        f"{a['alive']} / {b['alive']}; launches {b['launches']}")
+    wa, wb = ([r["ms"][i] for i in steady] for r in (a, b))
+    log(f"step wall ms (steps 2-25 without the densify and reset steps), "
+        f"median (range): Trainer {np.median(wa):.2f} ({min(wa):.2f}-"
+        f"{max(wa):.2f}), ShardedTrainer {np.median(wb):.2f} "
+        f"({min(wb):.2f}-{max(wb):.2f})")
+    check(len(b["loss"]) == 25 and len(a["loss"]) == 25, "25 steps each")
+    check(p_err <= 5e-5, f"first-step params differ by {p_err}")
+    check(l_err <= 1e-4, f"losses differ by {l_err} relative")
+    check(a["alive"] == b["alive"], "alive counts around the densify")
+    check(all(v == 25 for v in b["launches"].values()),
+          f"K1-K4 launches once per sharded step: {b['launches']}")
+    return b["launches"], dict(trainer_ms=float(np.median(wa)),
+                               sharded_ms=float(np.median(wb)))
+
+
+def phase_sharded_inference(stereo_pngs):
+    """Phase 14: make_sharded_dlnr (a (1 x 1) mesh's data axis) on two of
+    phase 5b's served stereo pairs at 960x576 (the seeded DLNR, 10
+    iterations) and make_sharded_integrate on phase 5c's 20-view test
+    sphere, each against the unsharded call."""
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.fusion import TSDFConfig
+    from gs2mesh_torch.fusion.tsdf import allocate, create_volume
+    from gs2mesh_torch.parallel import (gather_volume, make_mesh,
+                                        make_sharded_dlnr,
+                                        make_sharded_integrate, shard_volume)
+    from gs2mesh_torch.stereo import DLNR, DLNRConfig, dlnr_forward, init_dlnr_
+
+    mesh = make_mesh(1, 1, "cuda")
+    model = init_dlnr_(DLNR(), torch.Generator().manual_seed(0)).eval()
+    model = model.cuda()
+
+    def batch(side):
+        return torch.stack([torch.from_numpy(read_png(p[side]).astype(
+            np.float32)).permute(2, 0, 1) for p in stereo_pngs]).cuda()
+
+    im1, im2 = batch("left"), batch("right")
+    cfg = DLNRConfig(iters=10)
+    with torch.no_grad():
+        ref = dlnr_forward(model, im1, im2, cfg)
+        got = make_sharded_dlnr(mesh, cfg)(model, im1, im2)
+    torch.cuda.synchronize()
+    gaps = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got, ref)]
+    log(f"sharded DLNR (world 1) vs dlnr_forward on {tuple(im1.shape)}: "
+        f"flow_low / disparity max |diff| / max |value| {gaps[0]:.3e} / "
+        f"{gaps[1]:.3e} (limit 1e-5)")
+    check(max(gaps) <= 1e-5, "sharded DLNR differs")
+
+    tcfg = TSDFConfig(voxel_size=0.02, sdf_trunc=0.06, block_capacity=4096,
+                      alloc_stride=2)
+    views = list(small_sphere_views())
+    vol, _ = fuse(views, tcfg, "cuda", 3.0)
+    shard = shard_volume(create_volume(tcfg, "cuda"), mesh)
+    step = make_sharded_integrate(tcfg)
+    for color, depth, K, E in views:
+        color, depth, K, E = (torch.as_tensor(a).cuda()
+                              for a in (color, depth, K, E))
+        shard = allocate(shard, depth, K, E, 3.0, tcfg)
+        shard = step(shard, color, depth, K, E, 3.0)
+    got = gather_volume(shard, mesh)
+    same = all(torch.equal(getattr(got, k), getattr(vol, k))
+               for k in ("keys", "order", "tsdf", "weight", "color"))
+    log(f"sharded integrate (world 1) vs the single-device volume over "
+        f"{len(views)} views: {got.n_blocks} blocks, bit-equal {same}")
+    check(same and got.n_blocks == vol.n_blocks, "sharded integrate differs")
+
+
+def http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        return r.read(), r.headers.get("Content-Type")
+
+
+def phase_viewer(work, n_requests=20, size=(960, 540)):
+    """Phase 15: ViewerServer(device="cuda") on phase 4's PLY at 960x540 on
+    a free port: GET / and /info, then n_requests /render at seeded orbit
+    poses, each PNG decoded and held byte for byte to the quantised K1/K2
+    render of the same camera; K1 / K2 launched once per request; ms a
+    request (client wall), the render's device ms and the PNG encode ms.
+    Returns the launches."""
+    from gs2mesh_torch.core.png import decode_png
+    from gs2mesh_torch.models.gaussians import GaussianModel
+    from gs2mesh_torch.train.trainer import render_model
+    from gs2mesh_torch.viewer import ViewerServer, orbit_camera, quantize
+
+    model = GaussianModel.load_ply(os.path.join(work, "point_cloud.ply"),
+                                   device="cuda")
+    W, H = size
+    srv = ViewerServer(model, width=W, height=H, pair_capacity=1 << 23,
+                       port=0, device="cuda")
+    port = srv.start()
+    counters = kernel_counts()
+    try:
+        page, ctype = http_get(port, "/")
+        check(ctype.startswith("text/html") and b"viewer" in page, "page")
+        info = json.loads(http_get(port, "/info")[0])
+        check((info["width"], info["height"]) == (W, H), "info")
+        http_get(port, "/render?az=0&el=15")           # warm-up
+        rng = np.random.default_rng(0)
+        poses = [(float(rng.uniform(-180, 180)), float(rng.uniform(-60, 60)),
+                  float(srv.radius * rng.uniform(0.8, 1.3)))
+                 for _ in range(n_requests)]
+        srv.timings.clear()
+        for k in counters.values():
+            k.launches = 0
+        pngs, walls = [], []
+        for az, el, r in poses:
+            t0 = time.perf_counter()
+            png, ctype = http_get(port, f"/render?az={az}&el={el}&r={r}")
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(ctype == "image/png", "png answer")
+            pngs.append(png)
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        srv.stop()
+    n_pairs = []
+    with torch.no_grad():
+        for (az, el, r), png in zip(poses, pngs):
+            cam = orbit_camera(srv.target, r, az, el, 60.0, W, H)
+            out = render_model(srv.params, srv.alive, cam, srv.sh_degree,
+                               srv.bg, srv.rcfg)
+            n_pairs.append(int(out.num_pairs))
+            check(np.array_equal(decode_png(png), quantize(out.image)),
+                  f"viewer PNG at ({az:.1f}, {el:.1f}) differs from its "
+                  f"render")
+    dev = [t["device_ms"] for t in srv.timings
+           if t["device_ms"] is not None] or [float("nan")]
+    enc = [t["encode_ms"] for t in srv.timings]
+    log(f"viewer: {n_requests} /render at {W}x{H} ({min(n_pairs)}-"
+        f"{max(n_pairs)} pairs): each PNG byte-equal to the quantised K1/K2 "
+        f"render; ms a request median {np.median(walls):.2f} ({min(walls):.2f}"
+        f"-{max(walls):.2f}); render device ms median {np.median(dev):.3f} "
+        f"({min(dev):.3f}-{max(dev):.3f}); PNG encode ms median "
+        f"{np.median(enc):.2f} ({min(enc):.2f}-{max(enc):.2f}); launches "
+        f"{launches}")
+    check(launches["K1"] == launches["K2"] == n_requests
+          and launches["K3"] == launches["K4"] == 0,
+          f"viewer launches {launches}")
+    return launches, dict(request_ms=walls, device_ms=dev, encode_ms=enc)
+
+
+def phase_network_gui(work, iters=10, size=(960, 576)):
+    """Phase 16: gs_tools.gs_train(gui=True) on phase 10's scene for
+    `iters` iterations with a scripted SIBR client in a thread asking for
+    960x576 frames (each frame's byte count and the verify string checked),
+    then once without a client; then, with the training done, one frame of
+    the final model served to the client and held to a direct render. ms a
+    GUI frame (serve_step) and the train step with and without the client.
+    Returns K1-K4's launches of the run with the client."""
+    import socket
+    import threading
+
+    from gs2mesh_torch.cli import gs_tools
+    from gs2mesh_torch.core.camera import make_camera
+    from gs2mesh_torch.train import network_gui, trainer as trainer_mod
+    from gs2mesh_torch.train.trainer import render_model
+
+    src = os.path.join(work, "train_scene")
+    W, H = size
+    R, t = look_at((0.3, -0.2, -2.9))
+    fov = math.radians(60)
+    cam = make_camera(R.T, t, fov, 2 * math.atan(H / W * math.tan(fov / 2)),
+                      W, H)
+    view = cam.world_view.cpu().numpy().copy()
+    view[:, 1:3] *= -1
+    proj = cam.full_proj.cpu().numpy().copy()
+    proj[:, 1] *= -1
+    msg = json.dumps(dict(
+        resolution_x=W, resolution_y=H, train=True, keep_alive=False,
+        scaling_modifier=1.0, view_matrix=view.reshape(-1).tolist(),
+        view_projection_matrix=proj.reshape(-1).tolist(), fov_x=fov,
+        fov_y=2 * math.atan(H / W * math.tan(fov / 2)), z_near=0.01,
+        z_far=100.0)).encode()
+
+    def recv_exact(s, n):
+        """n bytes, or None once the server has closed the connection."""
+        buf = bytearray()
+        while len(buf) < n:
+            try:
+                chunk = s.recv(n - len(buf))
+            except OSError:
+                return None
+            if not chunk:
+                return None
+            buf += chunk
+        return bytes(buf)
+
+    def client(port, frames, limit):
+        deadline = time.time() + 120
+        while True:
+            try:
+                s = socket.create_connection(("127.0.0.1", port), timeout=120)
+                break
+            except OSError:
+                check(time.time() < deadline, "SIBR client could not connect")
+                time.sleep(0.01)
+        with s:
+            while len(frames) < limit:
+                t0 = time.perf_counter()
+                try:
+                    s.sendall(len(msg).to_bytes(4, "little") + msg)
+                except OSError:
+                    break
+                img = recv_exact(s, W * H * 3)
+                vlen = recv_exact(s, 4) if img is not None else None
+                if vlen is None:
+                    break
+                verify = recv_exact(s, int.from_bytes(vlen, "little"))
+                frames.append((img, verify.decode("ascii"),
+                               (time.perf_counter() - t0) * 1e3))
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    plain_step, plain_serve = trainer_mod.train_step, network_gui.serve_step
+    timing = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return res
+        return run
+
+    counters = kernel_counts()
+    runs = {}
+    for gui in (True, False):
+        timing.clear()
+        frames = []
+        trainer_mod.train_step = timed("step", plain_step)
+        network_gui.serve_step = timed("serve", plain_serve)
+        for k in counters.values():
+            k.launches = 0
+        try:
+            port = free_port()
+            th = None
+            if gui:
+                th = threading.Thread(target=client,
+                                      args=(port, frames, 10 ** 6))
+                th.start()
+            tr = gs_tools.gs_train(src, os.path.join(work, f"gui_{gui}"),
+                                   iterations=iters, test_iterations=(),
+                                   save_iterations=(iters,), quiet=True,
+                                   gui=gui, port=port)
+            if th is not None:
+                th.join(timeout=120)
+        finally:
+            trainer_mod.train_step = plain_step
+            network_gui.serve_step = plain_serve
+        runs[gui] = dict(step=list(timing.get("step", [])),
+                         serve=list(timing.get("serve", [])),
+                         launches={k: c.launches for k, c in
+                                   counters.items()},
+                         frames=frames, trainer=tr)
+    with_gui, without = runs[True], runs[False]
+    frames = with_gui["frames"]
+    check(tr.iteration == iters and with_gui["trainer"].iteration == iters,
+          "GUI run trained its iterations")
+    check(len(frames) >= iters - 1,
+          f"{len(frames)} GUI frames over {iters} iterations")
+    for img, verify, _ in frames:
+        check(len(img) == W * H * 3 and verify == src,
+              "GUI frame bytes / verify string")
+    log(f"network GUI: {len(frames)} frames of {W}x{H} over {iters} "
+        f"iterations, each {W * H * 3} bytes + the verify string; client ms "
+        f"a frame median {np.median([f[2] for f in frames]):.2f}; "
+        f"serve_step ms median {np.median(with_gui['serve']):.2f}; train "
+        f"step ms median with the client {np.median(with_gui['step']):.2f}, "
+        f"without {np.median(without['step']):.2f}; launches "
+        f"{with_gui['launches']}")
+    check(with_gui["launches"]["K1"] == iters + len(frames)
+          and with_gui["launches"]["K3"] == iters,
+          f"GUI run launches {with_gui['launches']} ({len(frames)} frames)")
+
+    # The final model served once more, held to a direct render.
+    final = with_gui["trainer"]
+    gui_srv = network_gui.NetworkGUI("127.0.0.1", 0)
+    last = []
+    th = threading.Thread(target=client, args=(gui_srv.port, last, 1))
+    th.start()
+    seen = {}
+
+    def render_fn(c, scaling):
+        seen["cam"] = c
+        return render_model(final.model.params, final.model.state.alive, c,
+                            final.model.active_sh_degree,
+                            torch.zeros(3, device="cuda"), final.rcfg,
+                            scale_modifier=scaling).image
+
+    for _ in range(24000):
+        gui_srv.try_connect()
+        if gui_srv.conn is not None:
+            network_gui.serve_step(gui_srv, render_fn, iters, iters, src,
+                                   device="cuda")
+            break
+        time.sleep(0.005)
+    th.join(timeout=120)
+    gui_srv.close()
+    with torch.no_grad():
+        ref = render_fn(seen["cam"], 1.0)
+    check(len(last) == 1 and last[0][0] == network_gui.frame_bytes(ref),
+          "final GUI frame equals a direct render of the final model")
+    log("network GUI: the final model's frame equals a direct render")
+    return with_gui["launches"], dict(
+        frame_ms=[f[2] for f in frames], serve_ms=with_gui["serve"],
+        step_ms_gui=with_gui["step"], step_ms=without["step"])
+
+
+def phase_utils_viz(work, serving, stereo_dirs):
+    """Phase 17: profile_trace around 3 renders (its Chrome trace must name
+    K1's and K2's kernels), time_block on a render, and view_results_panel
+    on phase 5b's stereo outputs of view 0 (the panel as wide as its five
+    images)."""
+    from gs2mesh_torch import viz
+    from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.pipeline import PipelineArgs
+    from gs2mesh_torch.utils import profile_trace, time_block
+
+    eargs = serving["eargs"]
+    trace_dir = os.path.join(work, "trace")
+    with torch.no_grad():
+        with profile_trace(trace_dir):
+            for _ in range(3):
+                run_forward_kernels(eargs)
+            torch.cuda.synchronize()
+        with time_block("K1 + sort + K2 render", sync=eargs[0]) as tb:
+            run_forward_kernels(eargs)
+    (trace,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, trace)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    found = {k: any(v in n for n in names) for k, v in
+             (("K1", OWN_KERNELS["K1"]), ("K2", OWN_KERNELS["K2"]))}
+    size = os.path.getsize(os.path.join(trace_dir, trace))
+    log(f"profile_trace: {trace} ({size} bytes) names K1 / K2: {found}; "
+        f"time_block {tb['ms']:.3f} ms")
+    check(all(found.values()), f"trace kernel names {found}")
+    name = PipelineArgs.for_dataset("DTU").stereo_model   # phase 5b's
+    panel = viz.view_results_panel(stereo_dirs[0], name,
+                                   save_path=os.path.join(work, "panel.png"),
+                                   rng=np.random.default_rng(0))
+    files = ("left.png", "left_mask.png", f"out_{name}/disparity_LR.png",
+             f"out_{name}/occlusion_mask.png", f"out_{name}/shading.png")
+    shapes = {f: read_png(os.path.join(stereo_dirs[0], f)).shape[:2]
+              for f in files if os.path.exists(os.path.join(stereo_dirs[0],
+                                                            f))}
+    h, w = shapes["left.png"]
+    width = sum(shapes.get(f, (h, w))[1] for f in files)
+    log(f"view_results_panel on view 0: {panel.shape}, from the files "
+        f"{shapes} (a missing one filled with seeded noise)")
+    check(panel.shape == (h, width, 3) and width == 5 * w,
+          f"panel {panel.shape}, widths sum to {width}")
+    check(os.path.getsize(os.path.join(work, "panel.png")) > 1000,
+          "panel.png")
+
+
 def main():
     global SAVE_FORWARD_DIR
     import argparse
@@ -3074,14 +3774,15 @@ def main():
     t_phase = time.perf_counter()
     phase_backward_vs_plain(*phase_kernels_vs_plain(
         "20k/256x256", 20_000, 256, 256, (0.04, 0.012), 100))
-    phase_backward_vs_plain(*phase_kernels_vs_plain(
-        "60k narrow/360x200", 60_000, 360, 200, (0.006, 0.002), 10))
+    narrow = phase_kernels_vs_plain(
+        "60k narrow/360x200", 60_000, 360, 200, (0.006, 0.002), 10)
+    phase_backward_vs_plain(*narrow)
     log(f"phase kernels-vs-plain: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     r, renders, launches = phase_main_path(work)
     log(f"phase main path: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    rows, dense = phase_timings(r, launches)
+    rows, dense, serving = phase_timings(r, launches)
     phase_profile(r)
     log(f"phase timings + profile: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3092,6 +3793,7 @@ def main():
     t_phase = time.perf_counter()
     from gs2mesh_torch.pipeline import PipelineArgs
     phase_tsdf(r, PipelineArgs.for_dataset("DTU").stereo_model)
+    stereo_dirs = [r.render_folder_name(i) for i in range(2)]
     del r
     log(f"phase tsdf: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
@@ -3123,6 +3825,49 @@ def main():
     phase_gdino_checks()
     phase_gdino(work, pipe_tree)
     log(f"phase gdino: {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    strided_err = phase_strided_vs_plain(narrow)
+    strided = phase_strided(serving)
+    log(f"phase strided kernels: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    import torch.distributed as dist
+    init_world_one(work)
+    try:
+        sharded, sharded_ms = phase_sharded_train(work)
+        phase_sharded_inference([
+            {side: os.path.join(d, f"{side}.png") for side in
+             ("left", "right")} for d in stereo_dirs])
+    finally:
+        dist.destroy_process_group()
+    log(f"phase sharded train + inference: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    viewer, viewer_t = phase_viewer(work)
+    log(f"phase viewer: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    gui, gui_t = phase_network_gui(work)
+    log(f"phase network gui: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_utils_viz(work, serving, stereo_dirs)
+    log(f"phase utils + viz: {time.perf_counter() - t_phase:.1f} s")
+    for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
+        row["launches_viewer"] = viewer[key]
+        row["launches_gui"] = gui[key]
+        row["launches_sharded"] = sharded[key]
+        if key != "K4":
+            k = key.lower()
+            row["strided"] = {str(G): dict(
+                ms_per_slice=v["ms"][k], bound_ms_per_slice=v["bounds"][k],
+                pairs_per_slice=v["pairs"], balance=v["balance"])
+                for G, v in strided.items()}
+            row["strided_vs_plain_max_abs_err"] = strided_err[k]
+    rows[3]["strided_sum_max_abs_err"] = {
+        str(G): v["grad_err"] for G, v in strided.items()}
+    log(f"viewer request ms median {np.median(viewer_t['request_ms']):.2f}; "
+        f"GUI frame ms median {np.median(gui_t['frame_ms']):.2f}; step ms "
+        f"Trainer {sharded_ms['trainer_ms']:.2f} / ShardedTrainer "
+        f"{sharded_ms['sharded_ms']:.2f}")
     shutil.rmtree(work)
 
     # The card again, so that the end of a long log carries it beside the

@@ -46,6 +46,8 @@ def run_DTU(args: PipelineArgs, base_dir: str | None = None,
         args.GS_port = port_orig + scan_num
         print(args.colmap_name)
         ply_file = run_single(args, base_dir=base_dir, **run_kwargs)
+        if ply_file is None:        # a training-only rank (GS_devices > 1)
+            continue
 
         out_dir = os.path.join(exp_path, str(scan_num))
         Path(out_dir).mkdir(parents=True, exist_ok=True)
@@ -112,6 +114,8 @@ def run_MobileBrick(args: PipelineArgs, base_dir: str | None = None,
         args.GS_port = port_orig + encode_string(scan_name)
         print(args.colmap_name)
         ply_file = run_single(args, base_dir=base_dir, **run_kwargs)
+        if ply_file is None:        # a training-only rank (GS_devices > 1)
+            continue
         gt_dir = os.path.join(base_dir, "data", "MobileBrick", scan_name)
         out = evaluate_single(gt_dir, ply_file, exp_path, scan_name)
         write_to_csv(args.dataset_name, csv_file, [scan_name] + out)

@@ -9,8 +9,9 @@ gs2mesh_tpu cli/gs_tools.py (the reference gaussian-splatting root scripts):
     python -m gs2mesh_torch.cli.gs_tools train|render|metrics ...
 
 Every function runs on ``device`` (the card unless the caller asks for the
-CPU); PNGs are read and written by ``core/png.py``. The network GUI is not
-ported: ``gui=True`` raises.
+CPU); PNGs are read and written by ``core/png.py``. ``gs_train(gui=True)``
+(``train --gui``) serves the SIBR remote viewer on ``ip:port`` between
+steps (``train/network_gui.py``).
 """
 
 from __future__ import annotations
@@ -41,17 +42,16 @@ def gs_train(source_path: str, model_path: str, iterations: int = 30000,
              test_iterations=(7000, 30000), save_iterations=(7000, 30000),
              white_background: bool = False, resolution: int = -1,
              eval_split: bool = False, quiet: bool = False,
+             ip: str = "127.0.0.1", port: int = 6009,
              gui: bool = False, device="cuda"):
     """Train a GS model on a COLMAP scene and save checkpoints to
-    ``model_path``. Returns the Trainer."""
+    ``model_path``. With ``gui`` a SIBR remote viewer may attach on
+    ``ip:port`` and is served a frame between steps. Returns the Trainer."""
     from gs2mesh_torch.models.gaussians import GaussianModel
     from gs2mesh_torch.train.scene import (load_colmap_scene,
                                            random_point_cloud_fallback)
     from gs2mesh_torch.train.trainer import TrainConfig, Trainer
 
-    if gui:
-        raise NotImplementedError("the network GUI is not ported; train "
-                                  "with gui=False")
     scene = load_colmap_scene(source_path, resolution=resolution,
                               eval_split=eval_split, device=device)
     xyz, rgb = scene.points, scene.colors
@@ -69,11 +69,34 @@ def gs_train(source_path: str, model_path: str, iterations: int = 30000,
                       device=device)
     save_cfg_args(model_path, source_path, white_background=white_background)
 
+    net_gui = None
+    if gui:
+        from gs2mesh_torch.train.network_gui import NetworkGUI
+
+        try:
+            net_gui = NetworkGUI(ip, port)
+        except OSError as e:
+            print(f"network_gui disabled: {e}")
+
     test_set = set(test_iterations)
     save_set = set(save_iterations) | {iterations}
 
     def cb(tr, out):
         it = tr.iteration
+        if net_gui is not None:
+            from gs2mesh_torch.train.network_gui import serve_step
+            from gs2mesh_torch.train.trainer import render_model
+
+            def render_fn(cam, scaling):
+                return render_model(
+                    tr.model.params, tr.model.state.alive, cam,
+                    tr.model.active_sh_degree,
+                    torch.zeros(3, dtype=torch.float32, device=tr.device),
+                    tr.rcfg, max_per_tile=tr.max_per_tile,
+                    scale_modifier=float(scaling)).image
+
+            serve_step(net_gui, render_fn, it, cfg.iterations, source_path,
+                       device=tr.device)
         if it in test_set and scene.test_indices and not quiet:
             # training_report equivalent (train.py:156-191)
             value = tr.report_psnr(range(min(5, len(tr.cameras))))
@@ -82,7 +105,11 @@ def gs_train(source_path: str, model_path: str, iterations: int = 30000,
             print(f"[ITER {it}] Saving Gaussians")
             tr.save_checkpoint(model_path)
 
-    trainer.train(log_every=0 if quiet else 500, callback=cb)
+    try:
+        trainer.train(log_every=0 if quiet else 500, callback=cb)
+    finally:
+        if net_gui is not None:
+            net_gui.close()
     return trainer
 
 
@@ -250,7 +277,8 @@ def main(argv=None):
     if args.cmd == "train":
         gs_train(args.source_path, args.model_path, args.iterations,
                  args.test_iterations, args.save_iterations,
-                 args.white_background, eval_split=args.eval, gui=args.gui)
+                 args.white_background, eval_split=args.eval,
+                 port=args.port, gui=args.gui)
     elif args.cmd == "render":
         gs_render(args.model_path, args.source_path, args.iteration,
                   args.skip_train, args.skip_test)

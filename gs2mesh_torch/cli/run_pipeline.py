@@ -6,7 +6,11 @@ Usage (mirrors the reference root scripts):
   python -m gs2mesh_torch.cli.run_pipeline tnt|evaluate_tnt|mobilebrick|mipnerf360
 
 Every stage runs on the CUDA card (there is no device flag, as the JAX CLI
-has none); the port's copy of gs2mesh_tpu cli/run_pipeline.py.
+has none); the port's copy of gs2mesh_tpu cli/run_pipeline.py. GS training
+on several cards (``--GS_devices N``) runs one process per card:
+
+  torchrun --nproc-per-node N -m gs2mesh_torch.cli.run_pipeline single \
+      --GS_devices N [flags...]
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ def _args_from_cli(dataset: str, argv):
     for k, v in vars(ns).items():
         if hasattr(args, k):
             setattr(args, k, v)
+    if args.GS_devices > 1:
+        from gs2mesh_torch.parallel.multihost import initialize
+
+        initialize()                    # torchrun's environment
     return args
 
 

@@ -4,7 +4,8 @@
 grayscale with filter 0 on every row. ``read_png`` decodes 8-bit
 grayscale, RGB and RGBA non-interlaced PNGs (all five row filters) and
 raises ValueError for any other format, so an unsupported file never
-decodes into wrong pixels.
+decodes into wrong pixels. ``encode_png`` / ``decode_png`` are the same
+on bytes in memory (the viewer's HTTP answers).
 """
 
 from __future__ import annotations
@@ -22,6 +23,13 @@ _CHANNELS = {0: 1, 2: 3, 6: 4}
 def write_png(path: str, img: np.ndarray) -> None:
     """(H, W, 3) uint8 -> 8-bit RGB PNG; (H, W, 4) uint8 -> RGBA; (H, W)
     uint8 -> 8-bit grayscale."""
+    data = encode_png(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """write_png's file as bytes."""
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and
                                                        img.shape[2] in (3, 4))):
         raise ValueError(f"expected (H, W, 3), (H, W, 4) or (H, W) uint8, "
@@ -35,12 +43,10 @@ def write_png(path: str, img: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
-                                              0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + chunk(b"IEND", b""))
+    return (_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def _unfilter_row(ft: int, line: bytes, prev: bytearray, bpp: int,
@@ -78,7 +84,11 @@ def read_png(path: str) -> np.ndarray:
     """8-bit non-interlaced PNG -> (H, W) uint8 for grayscale, (H, W, 3 or
     4) uint8 for RGB / RGBA."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """read_png on the bytes of a PNG file; ``path`` names it in errors."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = 8, None, []

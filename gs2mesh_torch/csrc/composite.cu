@@ -42,6 +42,12 @@
 //    barrier, past which each warp's "still running" flag tells the block
 //    which sub-boxes the next staging may skip and when to leave.
 //
+// Strided slices (K2 and K3 alike): with (row_offset, row_stride) the image
+// is one rank's share under round-robin tile-row ownership, local tile row l
+// being global row row_offset + l * row_stride. The tile origin, and so the
+// tile-local means and every pixel centre, take the global y; the image
+// written (or read) stays the slice's. (0, 1) is the whole image.
+//
 // Numerics: alpha must decide `alpha_raw >= 1/255` exactly as the reference
 // does, so the tile-local mean (mx - 32*tx), dx/dy and the power
 // (-0.5*ca)*(dx*dx) + dy*((-0.5*cc)*dy - cb*dx) are separately rounded
@@ -353,8 +359,9 @@ __global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
 composite_forward_kernel(
     const int32_t* __restrict__ ids, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ counts, const float* __restrict__ feat9,
-    int width, int height, int gx, float alpha_min, float alpha_clamp,
-    float t_eps, float* __restrict__ color, float* __restrict__ final_T) {
+    int width, int height, int gx, int row_offset, int row_stride,
+    float alpha_min, float alpha_clamp, float t_eps, float* __restrict__ color,
+    float* __restrict__ final_T) {
   __shared__ float s_raw[2][kBatch * kCols];   // gathered feat9 rows
   __shared__ Staged s_st[2];
   __shared__ unsigned s_run[2][kWarps];        // has the warp a running pixel
@@ -364,7 +371,8 @@ composite_forward_kernel(
   const int tx = t % gx, ty = t / gx;
   const int j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5;
-  const float ox = (float)(tx * kTile), oy = (float)(ty * kTile);
+  const float ox = (float)(tx * kTile);
+  const float oy = (float)((row_offset + ty * row_stride) * kTile);
   const QuarterBoxes boxes{(quarter & 1) * kQuarter, (quarter >> 1) * kQuarter};
 
   // This thread's pixel: lane's place in the warp's sub-box.
@@ -483,8 +491,8 @@ composite_backward_kernel(
     const float* __restrict__ feat9, const float* __restrict__ color,
     const float* __restrict__ final_T, const float* __restrict__ dcolor,
     const float* __restrict__ dfinal_T, int width, int height, int gx,
-    float alpha_min, float alpha_clamp, float t_eps,
-    float* __restrict__ dpairs) {
+    int row_offset, int row_stride, float alpha_min, float alpha_clamp,
+    float t_eps, float* __restrict__ dpairs) {
   __shared__ float s_raw[kBatch * kCols];      // gathered feat9 rows
   __shared__ Staged s_st;
   __shared__ unsigned s_acc[kWarps][kMaskWords];  // pairs a warp accepted
@@ -497,7 +505,8 @@ composite_backward_kernel(
   const int tx = t % gx, ty = t / gx;
   const int j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5;
-  const float ox = (float)(tx * kTile), oy = (float)(ty * kTile);
+  const float ox = (float)(tx * kTile);
+  const float oy = (float)((row_offset + ty * row_stride) * kTile);
 
   // This thread's pixel in each of its warp's four sub-boxes.
   float dCr[kSub], dCg[kSub], dCb[kSub], U_tot[kSub], T[kSub], U_run[kSub];
@@ -682,14 +691,15 @@ composite_backward_kernel(
 extern "C" int gs_composite_forward(const void* ids, const void* starts,
                                     const void* counts, const void* feat9,
                                     int width, int height, int gx, int gy,
+                                    int row_offset, int row_stride,
                                     float alpha_min, float alpha_clamp,
                                     float t_eps, void* color, void* final_T,
                                     void* stream) {
   composite_forward_kernel<<<4 * gx * gy, kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const int32_t*)ids, (const int32_t*)starts, (const int32_t*)counts,
-      (const float*)feat9, width, height, gx, alpha_min, alpha_clamp, t_eps,
-      (float*)color, (float*)final_T);
+      (const float*)feat9, width, height, gx, row_offset, row_stride,
+      alpha_min, alpha_clamp, t_eps, (float*)color, (float*)final_T);
   return (int)cudaGetLastError();
 }
 
@@ -700,8 +710,8 @@ extern "C" int gs_composite_backward(
     const void* counts, const void* num_pairs, const void* feat9,
     const void* color, const void* final_T, const void* dcolor,
     const void* dfinal_T, int width, int height, int gx, int gy,
-    long long capacity, float alpha_min, float alpha_clamp, float t_eps,
-    void* dpairs, void* stream) {
+    int row_offset, int row_stride, long long capacity, float alpha_min,
+    float alpha_clamp, float t_eps, void* dpairs, void* stream) {
   composite_backward_fill_kernel<<<528, 256, 0, (cudaStream_t)stream>>>(
       (const int64_t*)num_pairs, (int64_t)capacity, (float*)dpairs);
   composite_backward_kernel<<<gx * gy, kThreads, 0,
@@ -709,7 +719,8 @@ extern "C" int gs_composite_backward(
       (const int32_t*)ids, (const int64_t*)order, (const int32_t*)starts,
       (const int32_t*)counts, (const float*)feat9, (const float*)color,
       (const float*)final_T, (const float*)dcolor, (const float*)dfinal_T,
-      width, height, gx, alpha_min, alpha_clamp, t_eps, (float*)dpairs);
+      width, height, gx, row_offset, row_stride, alpha_min, alpha_clamp,
+      t_eps, (float*)dpairs);
   return (int)cudaGetLastError();
 }
 

@@ -34,6 +34,12 @@
 //  * The slots from num_pairs to the capacity are filled by a grid-stride
 //    loop of all threads; a run whose span crosses the capacity stops there.
 //
+// Strided slices: with (row_offset, row_stride) local tile row l of the
+// rect and of the key is global tile row row_offset + l * row_stride (one
+// rank's share of the image under round-robin tile-row ownership, the TPU
+// decode's row_offset / cfg.row_stride). The box test takes the global y;
+// the key keeps the local tile id. (0, 1) is the whole image.
+//
 // Numerics: the cull must decide exactly as the reference does; its box test
 // lives in cull.cuh (shared with K2 and K3), written in separately rounded
 // __f*_rn intrinsics in the reference's operation order.
@@ -61,8 +67,8 @@ __global__ void __launch_bounds__(kThreads) emit_pairs_kernel(
     const int4* __restrict__ rect, const float* __restrict__ depths,
     const float* __restrict__ feat9, const int64_t* __restrict__ num_pairs_p,
     const int64_t* __restrict__ sent_key_p, int n, int64_t capacity, int gx,
-    int num_tiles, int tb, int tile, int64_t* __restrict__ keys,
-    int32_t* __restrict__ ids) {
+    int num_tiles, int tb, int tile, int row_offset, int row_stride,
+    int64_t* __restrict__ keys, int32_t* __restrict__ ids) {
   __shared__ float s_feat[kWarps][kRun * kFeat];
   __shared__ int s_int[kWarps][kRun * kInts];
 
@@ -123,9 +129,13 @@ __global__ void __launch_bounds__(kThreads) emit_pairs_kernel(
     const unsigned rw = (unsigned)gi[2];
     const int tx = gi[0] + (int)((unsigned)local % rw);
     const int ty = gi[1] + (int)((unsigned)local / rw);
+    // Local tile row ty lies at global row row_offset + ty * row_stride
+    // (strided slices); the box test takes the global geometry, the key the
+    // local tile id.
+    const int ty_global = row_offset + ty * row_stride;
     const float x_lo = __fsub_rn(__fmul_rn((float)tx, tf), f[0]);
     const float x_hi = __fadd_rn(x_lo, tf - 1.0f);
-    const float y_lo = __fsub_rn(__fmul_rn((float)ty, tf), f[1]);
+    const float y_lo = __fsub_rn(__fmul_rn((float)ty_global, tf), f[1]);
     const float y_hi = __fadd_rn(y_lo, tf - 1.0f);
     const bool alive =
         gs_cull::box_alive(f[2], f[3], f[4], f[5], x_lo, x_hi, y_lo, y_hi);
@@ -143,7 +153,8 @@ extern "C" int gs_emit_pairs(const void* offsets, const void* tiles,
                              const void* feat9, const void* num_pairs,
                              const void* sent_key, int n, long long capacity,
                              int gx, int num_tiles, int tb, int tile,
-                             void* keys, void* ids, void* stream) {
+                             int row_offset, int row_stride, void* keys,
+                             void* ids, void* stream) {
   const long long by_n = ((long long)n + kThreads - 1) / kThreads;
   const long long by_k = (capacity + kThreads - 1) / kThreads;
   // A warp per 32 gaussians, and at least enough blocks (up to 1024) for
@@ -155,7 +166,7 @@ extern "C" int gs_emit_pairs(const void* offsets, const void* tiles,
       (const int64_t*)offsets, (const int32_t*)tiles, (const int4*)rect,
       (const float*)depths, (const float*)feat9, (const int64_t*)num_pairs,
       (const int64_t*)sent_key, n, (int64_t)capacity, gx, num_tiles, tb, tile,
-      (int64_t*)keys, (int32_t*)ids);
+      row_offset, row_stride, (int64_t*)keys, (int32_t*)ids);
   return (int)cudaGetLastError();
 }
 

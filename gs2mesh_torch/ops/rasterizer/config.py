@@ -13,9 +13,10 @@ class RasterizerConfig:
     JAX package's ``RasterizerConfig(feat_carry_bf16=False,
     grad_carry_bf16=False)``, always with a stable (tile, depth) sort. The
     JAX package's bf16 / minifloat payload packing, gaussian ids stuffed
-    into mantissa bits, ``sort_stable=False``, ``row_stride`` (sharded
-    emission) and ``force_pallas`` exist for the TPU's sort and layout and
-    are not ported.
+    into mantissa bits, ``sort_stable=False`` and ``force_pallas`` exist
+    for the TPU's sort and layout and are not ported. Its ``row_stride``
+    (the sharded step's strided tile rows) is the ``row_stride`` argument
+    of the emission and compositing functions here, beside ``row_offset``.
     """
 
     tile: int = 32                  # pixel tile edge; the CUDA compositors

@@ -17,6 +17,16 @@ CUDA reference's duplicateWithKeys + radix sort + identifyTileRanges):
 ``emission_cuda`` launches kernel K1 (``csrc/emit.cu``); ``emission_plain``
 is the same function in PyTorch ops. ``emit_pairs`` picks by device.
 
+Strided slices (the multi-rank step, ``parallel/sharded_train.py``): with
+``(row_offset, row_stride)`` the grid is one rank's share of the image
+under round-robin tile-row ownership, local tile row ``l`` being global row
+``row_offset + l * row_stride`` (the JAX package's ``row_offset`` and
+``RasterizerConfig.row_stride``). ``rect`` holds local rows; the cull takes
+the global y; keys and tile ids stay local. ``key_tiles`` sizes the key's
+tile field (default: this grid's tile count, as the JAX package does); a
+slice sized for the whole image's count orders its pairs exactly as the
+unsharded render does.
+
 Emission order is gaussian-major, so the backward's per-gaussian reduction
 is a sum over contiguous slot segments: ``segment_sum_cuda`` launches
 kernel K4 (``csrc/segsum.cu``) on per-pair gradients written at their
@@ -104,14 +114,25 @@ def box_alive_plain(ca, cb, cc, op, x_lo, x_hi, y_lo, y_hi) -> torch.Tensor:
                                                  dtype=torch.float32)
 
 
+def _strided_grid(width, height, cfg, row_offset, row_stride, key_tiles):
+    """(gx, num_tiles, tb) of a (strided) grid, the arguments checked."""
+    gx, gy = cfg.grid_size(width, height)
+    num_tiles = gx * gy
+    key_tiles = num_tiles if key_tiles is None else int(key_tiles)
+    if row_offset < 0 or row_stride < 1 or key_tiles < num_tiles:
+        raise ValueError(f"row_offset {row_offset}, row_stride {row_stride}, "
+                         f"key_tiles {key_tiles} for {num_tiles} tiles")
+    return gx, num_tiles, key_bits(key_tiles)
+
+
 def emission_plain(feat9, depths, rect, tiles_touched, width: int,
-                   height: int, cfg: RasterizerConfig) -> Emission:
+                   height: int, cfg: RasterizerConfig, row_offset: int = 0,
+                   row_stride: int = 1, key_tiles=None) -> Emission:
     """Per-slot decode with searchsorted over the prefix sum, then the same
     cull and key as kernel K1."""
     K = cfg.pair_capacity
-    gx, gy = cfg.grid_size(width, height)
-    num_tiles = gx * gy
-    tb = key_bits(num_tiles)
+    gx, num_tiles, tb = _strided_grid(width, height, cfg, row_offset,
+                                      row_stride, key_tiles)
     dev = depths.device
     f32 = torch.float32
 
@@ -136,13 +157,15 @@ def emission_plain(feat9, depths, rect, tiles_touched, width: int,
     t = cfg.tile
     x_lo = tx.to(f32) * t - mx
     x_hi = x_lo + (t - 1)
-    y_lo = ty.to(f32) * t - my
+    y_lo = (row_offset + ty * row_stride).to(f32) * t - my
     y_hi = y_lo + (t - 1)
 
     alive = box_alive_plain(ca, cb, cc, op, x_lo, x_hi, y_lo, y_hi)
 
     tile_id = torch.where(valid & alive, ty * gx + tx, num_tiles)
-    keys = (tile_id << (32 - tb)) | _depth_msbs(depths[g], tb)
+    # An empty emission (a slice no gaussian reaches) has depth bits 0.
+    dbits = torch.where(num_pairs > 0, _depth_msbs(depths[g], tb), 0)
+    keys = (tile_id << (32 - tb)) | dbits
     ids = torch.where(valid, g, -1).to(torch.int32)
     return Emission(keys=keys, ids=ids, offsets=offsets, num_pairs=num_pairs,
                     overflow=num_pairs > K)
@@ -152,20 +175,20 @@ def emission_plain(feat9, depths, rect, tiles_touched, width: int,
 def _k1():
     fn = _build.library("emit").gs_emit_pairs
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
 
 def emission_cuda(feat9, depths, rect, tiles_touched, width: int,
-                  height: int, cfg: RasterizerConfig) -> Emission:
+                  height: int, cfg: RasterizerConfig, row_offset: int = 0,
+                  row_stride: int = 1, key_tiles=None) -> Emission:
     """Kernel K1: a warp expands a run of 32 gaussians into its contiguous
     span of slots, 32 consecutive keys and ids per store."""
     N = depths.shape[0]
     K = cfg.pair_capacity
-    gx, gy = cfg.grid_size(width, height)
-    num_tiles = gx * gy
-    tb = key_bits(num_tiles)
+    gx, num_tiles, tb = _strided_grid(width, height, cfg, row_offset,
+                                      row_stride, key_tiles)
     _check_cuda(feat9=(feat9, torch.float32, (N, 9)),
                 depths=(depths, torch.float32, (N,)),
                 rect=(rect, torch.int32, (N, 4)),
@@ -179,13 +202,15 @@ def emission_cuda(feat9, depths, rect, tiles_touched, width: int,
     offsets = cum - tiles_touched
     num_pairs = cum[-1:]
     g_last = torch.searchsorted(cum, num_pairs - 1, right=True)
-    sent_key = (num_tiles << (32 - tb)) | _depth_msbs(depths[g_last], tb)
+    sent_key = (num_tiles << (32 - tb)) | torch.where(
+        num_pairs > 0, _depth_msbs(depths[g_last], tb), 0)
     keys = torch.empty(K, dtype=torch.int64, device=depths.device)
     ids = torch.empty(K, dtype=torch.int32, device=depths.device)
     err = _k1()(offsets.data_ptr(), tiles_touched.data_ptr(),
                 rect.data_ptr(), depths.data_ptr(), feat9.data_ptr(),
                 num_pairs.data_ptr(), sent_key.data_ptr(), N, K, gx,
-                num_tiles, tb, cfg.tile, keys.data_ptr(), ids.data_ptr(),
+                num_tiles, tb, cfg.tile, row_offset, row_stride,
+                keys.data_ptr(), ids.data_ptr(),
                 torch.cuda.current_stream(depths.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"emission kernel launch failed: CUDA error {err}")
@@ -221,23 +246,26 @@ def _check_cuda(**tensors):
 
 
 def emit_pairs(feat9, depths, rect, tiles_touched, width: int, height: int,
-               cfg: RasterizerConfig) -> Emission:
+               cfg: RasterizerConfig, row_offset: int = 0,
+               row_stride: int = 1, key_tiles=None) -> Emission:
     """Kernel K1 for CUDA tensors, the plain version for CPU tensors."""
+    args = (feat9, depths, rect, tiles_touched, width, height, cfg,
+            row_offset, row_stride, key_tiles)
     if depths.is_cuda:
-        return emission_cuda(feat9, depths, rect, tiles_touched, width,
-                             height, cfg)
+        return emission_cuda(*args)
     if depths.device.type != "cpu":
         raise ValueError(f"unsupported device {depths.device}")
-    return emission_plain(feat9, depths, rect, tiles_touched, width, height,
-                          cfg)
+    return emission_plain(*args)
 
 
-def sort_pairs(em: Emission, num_tiles: int) -> SortedPairs:
+def sort_pairs(em: Emission, num_tiles: int, key_tiles=None) -> SortedPairs:
     """Stable sort on the (tile | depth) key and per-tile [start, start +
-    count) ranges of the sorted pairs (library sort and search)."""
+    count) ranges of the sorted pairs (library sort and search); key_tiles
+    as given to the emission."""
     keys_s, order = torch.sort(em.keys, stable=True)
+    tb = key_bits(num_tiles if key_tiles is None else key_tiles)
     bounds = torch.arange(num_tiles + 1, dtype=torch.int64,
-                          device=keys_s.device) << (32 - key_bits(num_tiles))
+                          device=keys_s.device) << (32 - tb)
     edges = torch.searchsorted(keys_s, bounds, out_int32=True)
     return SortedPairs(ids=em.ids[order], order=order, offsets=em.offsets,
                        tile_starts=edges[:-1],

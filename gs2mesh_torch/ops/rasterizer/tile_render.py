@@ -23,6 +23,12 @@ only of the sub-boxes that meet the box around the pair's reach,
 a compositor restricted by it makes. With ``drop_culled=True``
 ``composite_plain`` drops every evaluation the mask rejects, as K2 does: its
 outputs must not change by a bit.
+
+Strided slices: with ``(row_offset, row_stride)`` the (width, height) image
+is one rank's share under round-robin tile-row ownership, local tile row
+``l`` being global row ``row_offset + l * row_stride``; tile origins (and so
+tile-local means and pixel centres) take the global y, the image stays the
+slice's, as in K2 and K3.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ class Composited(NamedTuple):
                                  # evaluated over whole sub-boxes: those its
                                  # box mask keeps and in which some pixel
                                  # still evaluates it (0 without box_mask)
+    tile_evaluated: torch.Tensor  # (T,) int64 n_evaluated of each tile
+    tile_accepted: torch.Tensor   # (T,) int64 n_accepted of each tile
 
 
 class _ClampNoGate(torch.autograd.Function):
@@ -129,7 +137,8 @@ class _Layout(NamedTuple):
     in_image: torch.Tensor  # (T, P) bool
 
 
-def _layout(tile_counts, width, height, cfg, max_per_tile) -> _Layout:
+def _layout(tile_counts, width, height, cfg, max_per_tile, row_offset=0,
+            row_stride=1) -> _Layout:
     dev = tile_counts.device
     gx, gy = cfg.grid_size(width, height)
     T, P, t = gx * gy, cfg.pixels_per_tile, cfg.tile
@@ -143,7 +152,7 @@ def _layout(tile_counts, width, height, cfg, max_per_tile) -> _Layout:
         L=L, step=max(1, BATCH_ELEMS // (L * P)),
         px=(p % t).to(torch.float32), py=(p // t).to(torch.float32),
         ox=((tiles % gx) * t).to(torch.float32),
-        oy=((tiles // gx) * t).to(torch.float32),
+        oy=((row_offset + (tiles // gx) * row_stride) * t).to(torch.float32),
         in_image=(((tiles % gx) * t)[:, None] + (p % t) < width)
         & (((tiles // gx) * t)[:, None] + (p // t) < height))
 
@@ -205,7 +214,8 @@ def box_mask_local(feat, tile: int, box_w: int = BOX_W,
 
 def pair_box_mask_plain(pair_feat, tile_starts, tile_counts, width: int,
                         height: int, cfg: RasterizerConfig,
-                        box_w: int = BOX_W, box_h: int = BOX_H):
+                        box_w: int = BOX_W, box_h: int = BOX_H,
+                        row_offset: int = 0, row_stride: int = 1):
     """Plain version of the sub-box mask kernel K3 computes as it stages a
     pair: pair_feat (K, 9) rows of the sorted slots with GLOBAL means ->
     (K,) int64, bit b set if the pair can land in box b of its tile
@@ -222,7 +232,7 @@ def pair_box_mask_plain(pair_feat, tile_starts, tile_counts, width: int,
     in_tile = t < T
     t = t.clamp(max=T - 1)
     ox = ((t % gx) * cfg.tile).to(torch.float32)
-    oy = ((t // gx) * cfg.tile).to(torch.float32)
+    oy = ((row_offset + (t // gx) * row_stride) * cfg.tile).to(torch.float32)
     local = torch.cat([(pair_feat[:, 0] - ox)[:, None],
                        (pair_feat[:, 1] - oy)[:, None], pair_feat[:, 2:]], 1)
     alive = box_mask_local(local.detach(), cfg.tile, box_w, box_h)
@@ -245,7 +255,8 @@ def _box_evaluations(evaluated, bits, tile: int, box_w: int, box_h: int):
 def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
                     height: int, cfg: RasterizerConfig,
                     max_per_tile: int = 4096, box_mask=None,
-                    drop_culled: bool = False) -> Composited:
+                    drop_culled: bool = False, row_offset: int = 0,
+                    row_stride: int = 1) -> Composited:
     """pair_feat (K, 9) rows of the sorted slots with GLOBAL means; tile
     ranges (T,). Differentiable w.r.t. pair_feat. With box_mask (K,) int64
     from pair_box_mask_plain it also counts n_box_evaluated, and with
@@ -254,10 +265,9 @@ def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
     dev = pair_feat.device
     gx, gy = cfg.grid_size(width, height)
     T, P = gx * gy, cfg.pixels_per_tile
-    lay = _layout(tile_counts, width, height, cfg, max_per_tile)
-    color, final_T = [], []
-    n_eval = torch.zeros((), dtype=torch.int64, device=dev)
-    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    lay = _layout(tile_counts, width, height, cfg, max_per_tile, row_offset,
+                  row_stride)
+    color, final_T, n_eval, n_acc = [], [], [], []
     n_box = torch.zeros((), dtype=torch.int64, device=dev)
     for b0 in range(0, T, lay.step):
         sl = slice(b0, min(T, b0 + lay.step))
@@ -272,24 +282,27 @@ def composite_plain(pair_feat, tile_starts, tile_counts, width: int,
             keep)
         color.append(C)
         final_T.append(Tf)
-        n_eval += (evaluated & lay.in_image[sl, None]).sum()
-        n_acc += (accepted & lay.in_image[sl, None]).sum()
+        n_eval.append((evaluated & lay.in_image[sl, None]).sum((1, 2)))
+        n_acc.append((accepted & lay.in_image[sl, None]).sum((1, 2)))
         if box_mask is not None:
             n_box += _box_evaluations(evaluated & lay.in_image[sl, None],
                                       box_mask[idx], cfg.tile, BOX_W, BOX_H)
 
     color, final_T = assemble_image(torch.cat(color), torch.cat(final_T), gx,
                                     gy, width, height, cfg.tile)
+    n_eval, n_acc = torch.cat(n_eval), torch.cat(n_acc)
     return Composited(color=color, final_T=final_T,
                       tile_overflow=torch.any(tile_counts > max_per_tile),
-                      n_evaluated=n_eval, n_accepted=n_acc,
-                      n_box_evaluated=n_box)
+                      n_evaluated=n_eval.sum(), n_accepted=n_acc.sum(),
+                      n_box_evaluated=n_box, tile_evaluated=n_eval,
+                      tile_accepted=n_acc)
 
 
 def composite_backward_plain(pair_feat, tile_starts, tile_counts, dcolor,
                              dfinal_T, width: int, height: int,
                              cfg: RasterizerConfig,
-                             max_per_tile: int = 4096) -> torch.Tensor:
+                             max_per_tile: int = 4096, row_offset: int = 0,
+                             row_stride: int = 1) -> torch.Tensor:
     """Plain version of kernel K3: the gradient of composite_plain's
     (color, final_T) w.r.t. pair_feat, for cotangents dcolor (3, H, W) and
     dfinal_T (H, W). Returns (K, 9) per-pair gradients at SORTED positions
@@ -298,7 +311,8 @@ def composite_backward_plain(pair_feat, tile_starts, tile_counts, dcolor,
     gx, gy = cfg.grid_size(width, height)
     T = gx * gy
     K = pair_feat.shape[0]
-    lay = _layout(tile_counts, width, height, cfg, max_per_tile)
+    lay = _layout(tile_counts, width, height, cfg, max_per_tile, row_offset,
+                  row_stride)
     dC, dT = split_image(dcolor, dfinal_T, gx, gy, cfg.tile)
     dpairs = torch.zeros((K, 9), dtype=torch.float32,
                          device=pair_feat.device)

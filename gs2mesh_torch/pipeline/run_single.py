@@ -11,7 +11,10 @@ layout, so every inter-stage artifact is a resume point. Every stage runs on
 
 Differences from the JAX orchestrator: the stereo stage takes a DLNR module
 (``stereo_model``), not a parameter pytree; multi-device GS training
-(``GS_devices != 1``) raises until it is ported (ROADMAP A16); the custom
+(``GS_devices > 1``) runs one process per card under ``torchrun
+--nproc-per-node <GS_devices>`` (the JAX package drives every device from
+one process): rank 0 alone runs the stages before and after training, the
+others train and return None; the custom
 dataset's automask finds the reference's SAM2 checkpoint path under
 ``base_dir`` (``masker_stage.init_predictor``; JAX's passes none and
 raises); the dataset masks are read with the port's PNG reader (8-bit gray,
@@ -47,32 +50,50 @@ def train_gs(colmap_dir: str, model_dir: str, iterations: int,
              device="cuda"):
     """In-process GS training stage (replaces the train.py subprocess):
     trains on every view of the scene and saves the GS PLY and checkpoint
-    at each of ``save_iterations`` and at the last iteration."""
+    at each of ``save_iterations`` and at the last iteration. With
+    ``devices > 1`` every rank of an initialised process group of that
+    size calls it, and a ShardedTrainer trains on a (1, devices) mesh."""
     from gs2mesh_torch.models.gaussians import GaussianModel
     from gs2mesh_torch.ops.rasterizer import RasterizerConfig
     from gs2mesh_torch.train.scene import (load_colmap_scene,
                                            random_point_cloud_fallback)
     from gs2mesh_torch.train.trainer import TrainConfig, Trainer
 
-    if devices != 1:
-        raise NotImplementedError(
-            f"GS_devices={devices}: multi-device training is not ported "
-            f"yet (ROADMAP A16); train on one device")
+    if devices > 1:
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() != devices:
+            raise ValueError(
+                f"GS_devices={devices} trains one process per card: launch "
+                f"with torchrun --nproc-per-node {devices} (the process "
+                f"group must be initialised with {devices} ranks)")
     scene = load_colmap_scene(colmap_dir, resolution=resolution,
                               max_views=max_views, device=device)
     xyz, rgb = scene.points, scene.colors
     if xyz.shape[0] == 0:
         xyz, rgb = random_point_cloud_fallback(100_000,
                                                scene.nerf_norm_radius)
+    if devices > 1 and capacity is None:
+        # Rows split evenly over the gauss axis.
+        capacity = -(-max(xyz.shape[0], 4096) // (4096 * devices)) \
+            * 4096 * devices
     model = GaussianModel.from_point_cloud(
         xyz, rgb, capacity=capacity,
         spatial_lr_scale=scene.nerf_norm_radius, device=device)
     cfg = TrainConfig(iterations=iterations,
                       white_background=white_background)
     rcfg = RasterizerConfig(pair_capacity=pair_capacity)
-    trainer = Trainer(model=model, cameras=scene.cameras,
-                      images=scene.images, cfg=cfg, rcfg=rcfg,
-                      scene_extent=scene.nerf_norm_radius, device=device)
+    if devices > 1:
+        from gs2mesh_torch.parallel import ShardedTrainer, make_mesh
+
+        trainer = ShardedTrainer(
+            mesh=make_mesh(1, devices, model.device.type), model=model,
+            cameras=scene.cameras, images=scene.images, cfg=cfg, rcfg=rcfg,
+            scene_extent=scene.nerf_norm_radius)
+    else:
+        trainer = Trainer(model=model, cameras=scene.cameras,
+                          images=scene.images, cfg=cfg, rcfg=rcfg,
+                          scene_extent=scene.nerf_norm_radius, device=device)
     save_set = set(save_iterations or [iterations])
     save_set.add(iterations)
 
@@ -131,11 +152,13 @@ def run_single(args: PipelineArgs, base_dir: str | None = None,
                stereo_model=None, stereo_ckpt: str | None = None,
                gs_max_views=None, gs_resolution: int = -1,
                pair_capacity: int = 1 << 22,
-               stereo_iters: int | None = None, device="cuda") -> str:
+               stereo_iters: int | None = None,
+               device="cuda") -> str | None:
     """Run the full pipeline for one scene; returns the cleaned-mesh path.
     Like the JAX orchestrator it updates ``args`` in place: colmap_name
     gains "_downsample<k>" when downsampling (the dataset drivers read it
-    back)."""
+    back). With ``GS_devices > 1`` every rank calls it; rank 0 runs every
+    stage, the other ranks only train and return None."""
     from gs2mesh_torch.sfm import (create_downsampled_colmap_dir,
                                    extract_frames, run_colmap)
 
@@ -144,10 +167,16 @@ def run_single(args: PipelineArgs, base_dir: str | None = None,
     colmap_dir = os.path.abspath(os.path.join(
         base_dir, "data", args.dataset_name, args.colmap_name))
     strings = create_strings(args, base_dir)
+    sharded = args.GS_devices > 1 and not args.skip_GS
+    lead = True
+    if sharded:
+        import torch.distributed as dist
+
+        lead = not dist.is_initialized() or dist.get_rank() == 0
 
     with record_function("run_single.sfm"):
         # --- stage: video frame extraction -------------------------------
-        if not args.skip_video_extraction:
+        if not args.skip_video_extraction and lead:
             video = f"{args.colmap_name}.{args.video_extension}"
             extract_frames(os.path.join(colmap_dir, video),
                            os.path.join(colmap_dir, "images"),
@@ -155,7 +184,8 @@ def run_single(args: PipelineArgs, base_dir: str | None = None,
 
         # --- stage: downsample --------------------------------------------
         if args.downsample > 1:
-            create_downsampled_colmap_dir(colmap_dir, args.downsample)
+            if lead:
+                create_downsampled_colmap_dir(colmap_dir, args.downsample)
             args.colmap_name = (f"{args.colmap_name}_downsample"
                                 f"{args.downsample}")
             colmap_dir = os.path.abspath(os.path.join(
@@ -163,8 +193,10 @@ def run_single(args: PipelineArgs, base_dir: str | None = None,
             strings = create_strings(args, base_dir)
 
         # --- stage: COLMAP --------------------------------------------------
-        if not args.skip_colmap:
+        if not args.skip_colmap and lead:
             run_colmap(colmap_dir)
+        if sharded and dist.is_initialized():
+            dist.barrier()              # the scene is on disk for every rank
 
     # --- stage: GS training ---------------------------------------------
     model_dir = os.path.join(base_dir, "splatting_output",
@@ -176,6 +208,8 @@ def run_single(args: PipelineArgs, base_dir: str | None = None,
                      resolution=gs_resolution, max_views=gs_max_views,
                      pair_capacity=pair_capacity, devices=args.GS_devices,
                      device=device)
+    if not lead:
+        return None
 
     # --- stage: renderer + stereo ---------------------------------------
     with record_function("run_single.render_stereo"):

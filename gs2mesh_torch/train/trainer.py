@@ -192,7 +192,13 @@ def train_step(model: GaussianModel, optimizer: torch.optim.Optimizer,
 @dataclasses.dataclass
 class Trainer:
     """Host-side GS training loop over a list of (Camera, image) views.
-    The model and the cameras must be on ``device``."""
+    The model and the cameras must be on ``device``.
+
+    The loop's policy (view order, grow-and-redo, densify / opacity-reset
+    cadence, checkpoints) is shared with ``parallel.ShardedTrainer``, which
+    overrides the hooks that touch the rows: ``_step``, ``_whole`` /
+    ``_set_whole`` (the whole model and an optimizer over it, and back),
+    ``_load_whole`` and ``save_checkpoint``."""
 
     model: GaussianModel
     cameras: Sequence[Camera]
@@ -203,6 +209,9 @@ class Trainer:
     scene_extent: float = 1.0
     seed: int = 0
     device: str = "cuda"
+
+    log_tag = "train"
+    views_per_step = 1
 
     def __post_init__(self):
         # With its index filled in ("cuda" -> "cuda:0"), as tensors report it.
@@ -218,10 +227,7 @@ class Trainer:
             self.model.alive = torch.ones(self.model.capacity,
                                           dtype=torch.bool,
                                           device=self.device)
-        for leaf in self.model.params.tensors():
-            leaf.requires_grad_(True)
-        self.optimizer = make_optimizer(self.model.params, self.cfg,
-                                        self.model.spatial_lr_scale)
+        self._new_optimizer()
         self.iteration = 0
         self._rng = np.random.default_rng(self.seed)
         self._gen = torch.Generator(device=self.device).manual_seed(self.seed)
@@ -229,17 +235,34 @@ class Trainer:
         self._images_dev: Dict[int, torch.Tensor] = {}
         self.history: List[Dict[str, float]] = []
 
+    def _new_optimizer(self):
+        for leaf in self.model.params.tensors():
+            leaf.requires_grad_(True)
+        self.optimizer = make_optimizer(self.model.params, self.cfg,
+                                        self.model.spatial_lr_scale)
+
+    @property
+    def capacity(self) -> int:
+        """Rows of the whole model."""
+        return self.model.capacity
+
+    def num_alive(self) -> int:
+        return self.model.num_alive()
+
     def _bg(self) -> torch.Tensor:
         if self.cfg.random_background:
             return torch.rand(3, generator=self._gen, device=self.device)
         return torch.full((3,), 1.0 if self.cfg.white_background else 0.0,
                           dtype=torch.float32, device=self.device)
 
-    def _next_view(self) -> int:
-        if not self._view_stack:
-            self._view_stack = list(range(len(self.cameras)))
-            self._rng.shuffle(self._view_stack)
-        return self._view_stack.pop()
+    def _next_views(self) -> List[int]:
+        out = []
+        for _ in range(self.views_per_step):
+            if not self._view_stack:
+                self._view_stack = list(range(len(self.cameras)))
+                self._rng.shuffle(self._view_stack)
+            out.append(self._view_stack.pop())
+        return out
 
     def _image_dev(self, vi: int) -> torch.Tensor:
         """Targets stay on the device after their first use."""
@@ -247,6 +270,12 @@ class Trainer:
             self._images_dev[vi] = torch.tensor(
                 np.asarray(self.images[vi], np.float32), device=self.device)
         return self._images_dev[vi]
+
+    def _step(self, views: List[int], sh_degree: int):
+        (vi,) = views
+        return train_step(self.model, self.optimizer, self.cameras[vi],
+                          self._image_dev(vi), self._bg(), self.cfg,
+                          self.rcfg, sh_degree, self.max_per_tile)
 
     def train(self, iterations: Optional[int] = None, log_every: int = 0,
               callback=None):
@@ -258,20 +287,19 @@ class Trainer:
             it = self.iteration
             # SH degree warm-up: one band more every 1000 iterations.
             sh_deg = min(it // 1000, cfg.sh_degree)
-            vi = self._next_view()
-            out = train_step(self.model, self.optimizer, self.cameras[vi],
-                             self._image_dev(vi), self._bg(), cfg, self.rcfg,
-                             sh_deg, self.max_per_tile)
+            views = self._next_views()
+            out = self._step(views, sh_deg)
             self.model.active_sh_degree = sh_deg
             # An overflowed render took no step: grow the bound that
-            # overflowed and redo this iteration on the same view.
+            # overflowed and redo this iteration on the same views.
             if out.overflow or out.tile_overflow:
                 if out.overflow:
                     self.grow_pair_capacity()
                 if out.tile_overflow:
                     self.max_per_tile *= 2
-                    print(f"[train] max_per_tile -> {self.max_per_tile}")
-                self._view_stack.append(vi)
+                    print(f"[{self.log_tag}] max_per_tile -> "
+                          f"{self.max_per_tile}")
+                self._view_stack.extend(reversed(views))
                 self.iteration -= 1
                 continue
 
@@ -282,21 +310,49 @@ class Trainer:
                 self.reset_opacity()
             if log_every and it % log_every == 0:
                 rec = dict(iteration=it, loss=float(out.loss),
-                           num_alive=self.model.num_alive(),
-                           num_pairs=int(out.num_pairs))
+                           num_alive=self.num_alive(),
+                           num_pairs=out.num_pairs.tolist())
                 self.history.append(rec)
-                print(f"[train] it={it} loss={rec['loss']:.5f} "
+                print(f"[{self.log_tag}] it={it} loss={rec['loss']:.5f} "
                       f"alive={rec['num_alive']} pairs={rec['num_pairs']}")
             if callback is not None:
                 callback(self, out)
         return self
 
-    def _set_params(self, params: GaussianParams) -> None:
-        """New row values for every field, keeping the tensors the
-        optimizer holds."""
+    # ------------------------------------------------------------------
+    # The whole model (hooks ShardedTrainer overrides)
+    # ------------------------------------------------------------------
+    def _whole(self):
+        """(the whole model, an optimizer over its params)."""
+        return self.model, self.optimizer
+
+    def _set_whole(self, params: GaussianParams, state: GaussianState,
+                   optimizer) -> None:
+        """New rows of the whole model from ``params`` / ``state`` and
+        ``optimizer``'s moments (for this trainer, its own optimizer: new
+        row values keep the tensors it holds)."""
         for leaf, new in zip(self.model.params.tensors(), params.tensors()):
             leaf.data = new.detach()
+        self.model.state = state
 
+    def _load_whole(self, model: GaussianModel, moments: dict) -> None:
+        """Take ``model`` (the whole model) and Adam ``moments`` (group
+        name -> state dict), with a fresh optimizer."""
+        self.model = model
+        self._new_optimizer()
+        self._set_moments(moments)
+
+    def _set_moments(self, moments: dict, rows=slice(None)) -> None:
+        for g in self.optimizer.param_groups:
+            st = moments.get(g["name"])
+            if st:
+                self.optimizer.state[g["params"][0]] = {
+                    k: v if k == "step" else v[rows].clone()
+                    for k, v in st.items()}
+
+    # ------------------------------------------------------------------
+    # Adaptive density control
+    # ------------------------------------------------------------------
     def densify(self):
         # Screen-size pruning activates after an opacity reset (train.py:120).
         big = 20.0 if self.iteration > self.cfg.opacity_reset_interval else 0.0
@@ -304,15 +360,14 @@ class Trainer:
             grad_threshold=self.cfg.densify_grad_threshold,
             percent_dense=self.cfg.percent_dense,
             opacity_cull=0.005, max_screen_size=big)
+        model, optimizer = self._whole()
         params, state, stats = densify_and_prune(
-            self.model.params, self.model.state, self.optimizer,
-            self.scene_extent, dcfg, self._gen)
-        self._set_params(params)
-        self.model.state = state
+            model.params, model.state, optimizer, self.scene_extent, dcfg,
+            self._gen)
+        self._set_whole(params, state, optimizer)
         # Out of dead slots, or the pool nearly full: double the capacity.
-        if stats["overflow"] or \
-                self.model.num_alive() > 0.9 * self.model.capacity:
-            self.grow_capacity(self.model.capacity * 2)
+        if stats["overflow"] or int(state.alive.sum()) > 0.9 * self.capacity:
+            self.grow_capacity(self.capacity * 2)
         return stats
 
     def grow_pair_capacity(self):
@@ -325,24 +380,25 @@ class Trainer:
             raise RuntimeError(f"pair_capacity {cap} is at its bound; reduce "
                                "the image resolution or gaussian count")
         self.rcfg = dataclasses.replace(self.rcfg, pair_capacity=new)
-        print(f"[train] pair_capacity {cap} -> {new}")
+        print(f"[{self.log_tag}] pair_capacity {cap} -> {new}")
 
     def grow_capacity(self, new_capacity: int):
         """Pad params, state and Adam moments with dead rows up to
         ``new_capacity`` (the step counts are kept)."""
-        old = self.model.capacity
+        old = self.capacity
         if new_capacity <= old:
             return
-        params, state = grow_rows(self.model.params, self.model.state,
-                                  self.optimizer, new_capacity)
-        self._set_params(params)
-        self.model.state = state
-        print(f"[train] capacity {old} -> {new_capacity} "
-              f"(alive {self.model.num_alive()})")
+        model, optimizer = self._whole()
+        params, state = grow_rows(model.params, model.state, optimizer,
+                                  new_capacity)
+        self._set_whole(params, state, optimizer)
+        print(f"[{self.log_tag}] capacity {old} -> {new_capacity} "
+              f"(alive {int(state.alive.sum())})")
 
     def reset_opacity(self):
-        self._set_params(reset_opacity(self.model.params,
-                                       self.model.state.alive))
+        """Row-wise, so a sharded trainer resets its own rows."""
+        new = reset_opacity(self.model.params, self.model.state.alive)
+        self.model.params.opacity.data = new.opacity.detach()
         # The reference's replace_tensor_to_optimizer: fresh moments for
         # the opacity group only.
         _zero_opacity_moments(self.optimizer)
@@ -364,52 +420,71 @@ class Trainer:
             float(psnr(self.render_view(i).image, self._image_dev(i)))
             for i in idxs]))
 
+    def _checkpoint_bounds(self) -> dict:
+        return dict(pair_capacity=self.rcfg.pair_capacity,
+                    max_per_tile=self.max_per_tile)
+
     def save_checkpoint(self, path_dir: str):
-        os.makedirs(path_dir, exist_ok=True)
-        self.model.save_ply(os.path.join(
-            path_dir, "point_cloud", f"iteration_{self.iteration}",
-            "point_cloud.ply"))
-        # save_ply keeps alive rows only, in order; the per-row state and
-        # Adam moments go into the same order, dead rows after them, so a
-        # restored row i and its moments describe the same gaussian.
-        order = compact_row_order(self.model.state.alive)
-        torch.save({
-            "iteration": self.iteration,
-            "opt_state": {g["name"]: permute_rows(
-                self.optimizer.state.get(g["params"][0], {}), order)
-                for g in self.optimizer.param_groups},
-            "state": permute_rows(dataclasses.asdict(self.model.state),
-                                  order),
-            "active_sh_degree": self.model.active_sh_degree,
-            "spatial_lr_scale": self.model.spatial_lr_scale,
-        }, os.path.join(path_dir, f"chkpnt{self.iteration}.pt"))
+        model, optimizer = self._whole()
+        write_checkpoint(path_dir, model, optimizer, self.iteration,
+                         **self._checkpoint_bounds())
 
     def restore_checkpoint(self, path_dir: str, iteration: int):
-        blob = torch.load(os.path.join(path_dir, f"chkpnt{iteration}.pt"),
-                          map_location="cpu", weights_only=True)
-        # The saved rows fix the capacity (it may differ from this one's).
-        cap = blob["state"]["alive"].shape[0]
-        ply = os.path.join(path_dir, "point_cloud",
-                           f"iteration_{iteration}", "point_cloud.ply")
-        self.model = GaussianModel.load_ply(ply, self.model.max_sh_degree,
-                                            capacity=cap, device=self.device)
-        self.model.state = GaussianState(**{
-            k: v.to(self.device) for k, v in blob["state"].items()})
-        self.model.active_sh_degree = blob["active_sh_degree"]
-        self.model.spatial_lr_scale = blob["spatial_lr_scale"]
-        for leaf in self.model.params.tensors():
-            leaf.requires_grad_(True)
-        # The xyz schedule scales with spatial_lr_scale: a fresh optimizer.
-        self.optimizer = make_optimizer(self.model.params, self.cfg,
-                                        self.model.spatial_lr_scale)
-        for g in self.optimizer.param_groups:
-            st = blob["opt_state"][g["name"]]
-            if st:
-                p = g["params"][0]
-                self.optimizer.state[p] = {
-                    k: v if k == "step" else v.to(self.device)
-                    for k, v in st.items()}
+        """The saved rows fix the capacity (it may differ from this one's);
+        the xyz schedule scales with spatial_lr_scale, so the optimizer is
+        a fresh one holding the saved moments."""
+        model, moments, blob = read_checkpoint(
+            path_dir, iteration, self.model.max_sh_degree, self.device)
+        self._load_whole(model, moments)
         self.iteration = blob["iteration"]
+        self.rcfg = dataclasses.replace(self.rcfg, pair_capacity=blob.get(
+            "pair_capacity", self.rcfg.pair_capacity))
+        self.max_per_tile = blob.get("max_per_tile", self.max_per_tile)
+
+
+def write_checkpoint(path_dir: str, model: GaussianModel, optimizer,
+                     iteration: int, **extra) -> None:
+    """The GS PLY of ``model`` at point_cloud/iteration_N/ and
+    chkpntN.pt (Adam moments by group name, per-row state, SH degree,
+    spatial LR scale, and ``extra``). ``optimizer`` needs only
+    ``param_groups`` (one named parameter each) and ``state``."""
+    os.makedirs(path_dir, exist_ok=True)
+    model.save_ply(os.path.join(path_dir, "point_cloud",
+                                f"iteration_{iteration}", "point_cloud.ply"))
+    # save_ply keeps alive rows only, in order; the per-row state and Adam
+    # moments go into the same order, dead rows after them, so a restored
+    # row i and its moments describe the same gaussian.
+    order = compact_row_order(model.state.alive)
+    torch.save({
+        "iteration": iteration,
+        "opt_state": {g["name"]: permute_rows(
+            optimizer.state.get(g["params"][0], {}), order)
+            for g in optimizer.param_groups},
+        "state": permute_rows(dataclasses.asdict(model.state), order),
+        "active_sh_degree": model.active_sh_degree,
+        "spatial_lr_scale": model.spatial_lr_scale, **extra,
+    }, os.path.join(path_dir, f"chkpnt{iteration}.pt"))
+
+
+def read_checkpoint(path_dir: str, iteration: int, max_sh_degree: int,
+                    device) -> tuple:
+    """write_checkpoint's files -> (GaussianModel with its per-row state,
+    SH degree and spatial LR scale; Adam moments by group name; the blob)."""
+    blob = torch.load(os.path.join(path_dir, f"chkpnt{iteration}.pt"),
+                      map_location="cpu", weights_only=True)
+    cap = blob["state"]["alive"].shape[0]
+    ply = os.path.join(path_dir, "point_cloud", f"iteration_{iteration}",
+                       "point_cloud.ply")
+    model = GaussianModel.load_ply(ply, max_sh_degree, capacity=cap,
+                                   device=device)
+    model.state = GaussianState(**{k: v.to(device)
+                                   for k, v in blob["state"].items()})
+    model.active_sh_degree = blob["active_sh_degree"]
+    model.spatial_lr_scale = blob["spatial_lr_scale"]
+    moments = {name: {k: v if k == "step" else v.to(device)
+                      for k, v in st.items()}
+               for name, st in blob["opt_state"].items() if st}
+    return model, moments, blob
 
 
 def compact_row_order(alive: torch.Tensor) -> torch.Tensor:

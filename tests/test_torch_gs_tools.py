@@ -188,7 +188,7 @@ def test_main_dispatches(tmp_path, monkeypatch):
     gs_tools.main(["render", "-m", "M", "--iteration", "3", "--skip_train"])
     gs_tools.main(["metrics", "-m", "A", "B", "--lpips"])
     assert calls[0][0] == "gs_train" and calls[0][1][:3] == ("S", "M", 5)
-    assert calls[0][2] == {"eval_split": True, "gui": False}
+    assert calls[0][2] == {"eval_split": True, "port": 6009, "gui": False}
     assert calls[1] == ("gs_render", ("M", None, 3, True, False), {})
     assert calls[2] == ("gs_metrics", (["A", "B"],), {"lpips": True})
 

@@ -14,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "gs2mesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "gs2mesh_tpu")
-NOT_AT_IMPORT = ("PIL", "cv2", "matplotlib")
+NOT_AT_IMPORT = ("PIL", "cv2", "matplotlib", "plotly")
 
 
 def imported_modules(path: Path):
@@ -73,6 +73,12 @@ def test_scan_sees_the_port():
     for gdino in ("__init__", "deform", "swin", "bert", "tokenizer",
                   "fusion", "transformer", "model", "convert", "inference"):
         assert f"gs2mesh_torch/gdino/{gdino}.py" in names
+    for module in ("train/network_gui", "viewer/__init__", "viewer/server",
+                   "cli/view", "viz", "utils/__init__", "utils/debug",
+                   "utils/profiling", "parallel/__init__", "parallel/mesh",
+                   "parallel/sharded_train", "parallel/inference",
+                   "parallel/multihost"):
+        assert f"gs2mesh_torch/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

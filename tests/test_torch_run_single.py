@@ -503,7 +503,8 @@ def test_run_single_end_to_end(tmp_path, scene_tree):
 
 
 def test_unported_branches_raise(tmp_path, scene_tree):
-    with pytest.raises(NotImplementedError, match="A16"):
+    # devices > 1 needs a process group of that many ranks (torchrun).
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         rs.train_gs(scene_tree[0], str(tmp_path), 1, [1], False, devices=2,
                     device="cpu")
     args = _resume_args(config, "custom", "synth")
