@@ -174,10 +174,43 @@ Phases (any failure raises, and the script exits non-zero):
      client;
  17. profile_trace around 3 renders (the Chrome trace names K1 and K2),
      time_block on a render, view_results_panel on view 0's stereo outputs;
+ 19. (after 17) sustained training and the custom-data walkthrough: (a)
+     tools/trainsmoke_chip_torch.py's run(): 1,200 iterations on 6
+     golden targets at 480x288 of a 4000-gaussian sphere from a 500-row
+     init, its checks (finite params, the MA-50 loss under half the first,
+     alive > 500) and its dict (by 200-iteration window the median step
+     wall and the device busy ms of 10 profiled steps, densifies, growth,
+     launches, peak memory); K1-K4 once per taken step (K1 / K2 also per
+     redone one); (b) on (a)'s scene 120 iterations that force
+     both growths (a 1,000-row capacity, densify every 20 from 20 to 100
+     at a 1e-9 threshold, a pair capacity of half the first render's
+     pairs): grow_capacity and the overflow redo fire, finite loss and
+     params, launches as implied; (c) tools/calibrate_scene_torch.py's
+     run() at full width (24 ring views of the 300k bench sphere at
+     960x576, a 30k-row init, capacity 2^19, pair capacity 2^22), cut from
+     4,000 to 1,500 iterations (6 densifies) to fit the smoke: the loss
+     falls, alive rows grow, finite params, no taken step over the pair
+     capacity, launches as implied. After (a), (b) and (c) (so after the
+     last densify and growth) one step of K1-K4 on the trainer's live
+     state (params and alive mask at the grown capacity, dead rows
+     included, its pair capacity, view 0, the training loss's cotangent)
+     against emission_plain, composite_plain, composite_backward_plain and
+     the plain segment sum at phase 3's limits; (d) the walkthrough
+     examples/custom_data_walkthrough_torch.py cell by cell on a
+     custom-layout copy of phase 6's scene (the text model run_colmap
+     leaves), video and COLMAP skipped, GS_iterations=40, a seeded DLNR
+     at checkpoints/<stereo_model>.pth, masking off, the 3 plotting calls
+     left out (printed): each cell's wall, the panel (H, W, 3) uint8, K1-K4
+     launches as the path implies (40 steps and their redos, 4 PSNR views,
+     the overlap cell's pair, 2 a stereo view), the cleaned mesh written;
+     then the sphere's analytic depth and the TSDF cell again: > 1000
+     cleaned vertices within 2 voxels of the sphere;
  18. the card's name and power limit again, the "kernels" JSON line (K1-K3
      with their strided ms and bounds per G; every kernel with its
-     launches on the viewer, GUI and sharded paths), and the last line:
-     {"ok": true, "device": {...}}.
+     launches on the viewer, GUI, sharded, trainsmoke, calibrate and
+     walkthrough paths and its max abs error against the plain version on
+     the trained states of 19 a-c), and the last line: {"ok": true,
+     "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
@@ -811,16 +844,6 @@ def time_backward_kernels(pairs, feat9, tiles_touched, color, final_T, dC, dT,
     return k3, k4, k3_ms, k4_ms, lib_ms
 
 
-def kernel_counts():
-    from gs2mesh_torch.ops.rasterizer.composite import (
-        composite_backward_cuda, composite_cuda)
-    from gs2mesh_torch.ops.rasterizer.emit import (emission_cuda,
-                                                   segment_sum_cuda)
-
-    return {"K1": emission_cuda, "K2": composite_cuda,
-            "K3": composite_backward_cuda, "K4": segment_sum_cuda}
-
-
 def phase_train(work):
     """The training path at full width through the normal entry points:
     8 target views of the 300k SH-3 bench sphere rendered by the port at
@@ -833,7 +856,8 @@ def phase_train(work):
     from gs2mesh_torch.core.transforms import qvec2rotmat_wxyz
     from gs2mesh_torch.core import colmap_io
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
-    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
+    from gs2mesh_torch.ops.rasterizer import (RasterizerConfig,
+                                              kernel_wrappers, rasterize)
     from gs2mesh_torch.train.scene import load_colmap_scene
     from gs2mesh_torch.train.trainer import TrainConfig, Trainer
 
@@ -888,7 +912,7 @@ def phase_train(work):
                           capacity=tr.model.capacity))
 
     trainer.iteration = 3090
-    counters = kernel_counts()
+    counters = kernel_wrappers()
     for k in counters.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -2089,6 +2113,7 @@ def phase_pipeline(work, cfg=None):
     from gs2mesh_torch.evals.dtu import EVAL_RANGES
     from gs2mesh_torch.core.ply import read_ply
     from gs2mesh_torch.core.png import read_png
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.pipeline import PipelineArgs, Renderer, create_strings
     from gs2mesh_torch.pipeline import run_single as rs
     from gs2mesh_torch.stereo import DLNR, init_dlnr_
@@ -2124,7 +2149,7 @@ def phase_pipeline(work, cfg=None):
                                     GS_save_test_iterations=[iters])
     strings = create_strings(args, base)
     dlnr = init_dlnr_(DLNR(), torch.Generator().manual_seed(0))
-    counters = kernel_counts()
+    counters = kernel_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in counters.values():
@@ -2497,7 +2522,8 @@ def phase_gs_tools(work, iters=(20, 40)):
     from gs2mesh_torch.core.png import read_png
     from gs2mesh_torch.metrics import init_lpips_params, load_lpips, lpips
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
-    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
+    from gs2mesh_torch.ops.rasterizer import (RasterizerConfig,
+                                              kernel_wrappers, rasterize)
     from gs2mesh_torch.ops.rasterizer.golden import render_golden
 
     src = os.path.join(work, "train_scene")
@@ -2521,7 +2547,7 @@ def phase_gs_tools(work, iters=(20, 40)):
             return res
         return run
 
-    counters = kernel_counts()
+    counters = kernel_wrappers()
     for k in plain:
         setattr(gs_tools, k, timed(k))
     for k in counters.values():
@@ -3307,7 +3333,8 @@ def phase_sharded_train(work):
     the alive count after the densify equal, K1-K4 once per taken step; the
     step walls side by side. Returns the sharded run's launches."""
     from gs2mesh_torch.models.gaussians import GaussianModel
-    from gs2mesh_torch.ops.rasterizer import RasterizerConfig
+    from gs2mesh_torch.ops.rasterizer import (RasterizerConfig,
+                                              kernel_wrappers)
     from gs2mesh_torch.parallel import ShardedTrainer, make_mesh
     from gs2mesh_torch.train.scene import load_colmap_scene
     from gs2mesh_torch.train.trainer import TrainConfig, Trainer
@@ -3317,7 +3344,7 @@ def phase_sharded_train(work):
     mesh = make_mesh(1, 1, "cuda")
     rcfg = RasterizerConfig(pair_capacity=1 << 22)
     runs = {}
-    counters = kernel_counts()
+    counters = kernel_wrappers()
     for name in ("trainer", "sharded"):
         model = GaussianModel.from_point_cloud(
             scene.points, scene.colors,
@@ -3448,6 +3475,7 @@ def phase_viewer(work, n_requests=20, size=(960, 540)):
     Returns the launches."""
     from gs2mesh_torch.core.png import decode_png
     from gs2mesh_torch.models.gaussians import GaussianModel
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.train.trainer import render_model
     from gs2mesh_torch.viewer import ViewerServer, orbit_camera, quantize
 
@@ -3457,7 +3485,7 @@ def phase_viewer(work, n_requests=20, size=(960, 540)):
     srv = ViewerServer(model, width=W, height=H, pair_capacity=1 << 23,
                        port=0, device="cuda")
     port = srv.start()
-    counters = kernel_counts()
+    counters = kernel_wrappers()
     try:
         page, ctype = http_get(port, "/")
         check(ctype.startswith("text/html") and b"viewer" in page, "page")
@@ -3520,6 +3548,7 @@ def phase_network_gui(work, iters=10, size=(960, 576)):
 
     from gs2mesh_torch.cli import gs_tools
     from gs2mesh_torch.core.camera import make_camera
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.train import network_gui, trainer as trainer_mod
     from gs2mesh_torch.train.trainer import render_model
 
@@ -3596,7 +3625,7 @@ def phase_network_gui(work, iters=10, size=(960, 576)):
             return res
         return run
 
-    counters = kernel_counts()
+    counters = kernel_wrappers()
     runs = {}
     for gui in (True, False):
         timing.clear()
@@ -3727,6 +3756,279 @@ def phase_utils_viz(work, serving, stereo_dirs):
           "panel.png")
 
 
+# ---------------------------------------------------------------- phase 19
+CALIBRATE_ITERS = 1500        # of the tool's 4000: densify 500-1000, 6 times
+WALKTHROUGH_ITERS = 40        # GS_iterations of the walkthrough
+# The walkthrough's plotting calls: matplotlib or plotly, which the card's
+# machine lacks.
+PLOT_CALLS = ("visualize_poses", "visualize_mesh")
+
+
+def load_script(folder, name):
+    """<folder>/<name>.py beside this script as a module (the tools import
+    each other by name)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), folder)
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return __import__(name)
+
+
+def log_record(what, rec):
+    windows = [(w["iterations"], round(w["median_ms"], 3),
+                w["device_busy_ms"] and round(w["device_busy_ms"], 3),
+                w["device_events"], w["alive_end"])
+               for w in rec["step_ms_windows"]]
+    log(f"{what}: {rec['taken_steps']} taken steps in {rec['wall_s']:.2f} s "
+        f"(and {rec['profile_s']:.2f} s starting and reading profiles); step "
+        f"ms median, device busy ms, device events a step, alive by window "
+        f"{windows}; densifies "
+        f"{rec['densifies']}; model grew {rec['capacity_grows']}x, pair "
+        f"capacity {rec['pair_capacity_grows']}x; launches "
+        f"{rec['launches']}; peak {rec['peak_memory_gib']:.3f} GiB")
+
+
+def check_launches(what, launches, steps, renders):
+    """K1 / K2 once per render (taken steps, overflowed attempts and other
+    renders), K3 / K4 once per taken step."""
+    want = {"K1": renders, "K2": renders, "K3": steps, "K4": steps}
+    log(f"{what} launches {launches} (implied {want})")
+    check(launches == want, f"{what} launches {launches} != {want}")
+
+
+def trained_step_vs_plain(tr, what):
+    """One training step's K1-K4 against their plain versions on a
+    trainer's state as training left it: its params and alive mask at the
+    capacity it grew to (the dead rows that pruning and growth leave
+    included), its pair capacity, the active SH degree, view 0's camera and
+    target, and the cotangent of the training loss (gs_loss on the step's
+    background) at that view. Phase 3's limits: K1 bit for bit, K2 2e-5 on
+    >= 99.99% of the values, K3 and K4 as compare_backward holds them.
+    Returns the max abs error by kernel."""
+    from gs2mesh_torch.models.gaussians import activations
+    from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
+    from gs2mesh_torch.ops.rasterizer.emit import (build_feat9,
+                                                   emission_cuda,
+                                                   emission_plain)
+    from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
+    from gs2mesh_torch.ops.rasterizer.tile_render import (
+        composite_plain, pair_box_mask_plain, pair_rows)
+    from gs2mesh_torch.ops.ssim import gs_loss
+
+    m, cam, cfg = tr.model, tr.cameras[0], tr.rcfg
+    W, H = cam.width, cam.height
+    gx, gy = cfg.grid_size(W, H)
+    target, bg = tr._image_dev(0), tr._bg()
+    with torch.no_grad():
+        inp = activations(m.params, m.state.alive)
+        prep = preprocess(inp["means3d"], inp["scales"], inp["rotations"],
+                          inp["opacities"], inp["shs"], cam,
+                          m.active_sh_degree, cfg)
+        feat9 = build_feat9(prep)
+        eargs = (feat9, prep.depths, prep.rect, prep.tiles_touched, W, H, cfg)
+        pairs, k1_err = compare_emission(emission_cuda(*eargs),
+                                         emission_plain(*eargs), gx * gy,
+                                         what)
+        check(not bool(pairs.overflow), f"{what}: pair overflow")
+        color, final_T = composite_cuda(pairs.ids, pairs.tile_starts,
+                                        pairs.tile_counts, feat9, W, H, cfg)
+        rows = pair_rows(feat9, pairs.ids)
+        plain = composite_plain(
+            rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg,
+            int(pairs.tile_counts.max()), box_mask=pair_box_mask_plain(
+                rows, pairs.tile_starts, pairs.tile_counts, W, H, cfg))
+        k2_err = compare_composite(color, final_T, plain.color, plain.final_T,
+                                   what)
+        del rows, plain
+    image = (color + final_T[None] * bg[:, None, None]).requires_grad_(True)
+    (dC,) = torch.autograd.grad(gs_loss(image, target, tr.cfg.lambda_dssim),
+                                image)
+    dT = (dC * bg[:, None, None]).sum(0)
+    with torch.no_grad():
+        k3, k4 = run_backward_kernels(pairs, feat9, prep.tiles_touched, color,
+                                      final_T, dC, dT, W, H, cfg)
+        plain3 = run_backward_plain(pairs, feat9, dC, dT, W, H, cfg)
+        k3_err, k4_err = compare_backward(k3, k4, plain3, pairs,
+                                          prep.tiles_touched, what)
+    shown = prep.radius > 0
+    log(f"{what}: view 0 at {W}x{H}: capacity {tr.capacity} rows, "
+        f"{tr.num_alive()} alive; on screen {int((shown & m.alive).sum())} "
+        f"alive and {int((shown & ~m.alive).sum())} dead rows (opacity 0), "
+        f"which touch {int(prep.tiles_touched[~m.alive].sum())} tiles; "
+        f"pair capacity {cfg.pair_capacity}, {int(pairs.num_pairs)} pairs; "
+        f"SH degree {m.active_sh_degree}; max abs err K1 {k1_err:.3e}, K2 "
+        f"{k2_err:.3e}, K3 {k3_err:.3e}, K4 {k4_err:.3e}")
+    return dict(K1=k1_err, K2=k2_err, K3=k3_err, K4=k4_err)
+
+
+def phase_trainsmoke():
+    """Phase 19 (a) and (b): tools/trainsmoke_chip_torch.py's 1,200
+    iterations with its checks, then the forced-growth run on its scene;
+    after each, one step's K1-K4 against their plain versions on the
+    trained state. Returns K1-K4's launches over (a) and the max abs
+    errors of (a) and (b)."""
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
+
+    ts = load_script("tools", "trainsmoke_chip_torch")
+    counters = kernel_wrappers()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    tr, res = ts.run()           # prints its dict; raises on a failed check
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"19a trainsmoke_chip_torch.run(): {time.perf_counter() - t0:.2f} s")
+    log_record("19a trainsmoke", res)
+    check_launches("19a trainsmoke", launches, res["taken_steps"],
+                   res["taken_steps"] + res["pair_capacity_grows"])
+    check(res["launches"] == launches, "19a launches all in training")
+    check(res["taken_steps"] == res["iterations"] == 1200, "1200 steps")
+    check(not res["over_capacity_steps"], "19a steps over pair capacity")
+    errs = dict(trainsmoke=trained_step_vs_plain(tr, "19a trained step"))
+
+    t0 = time.perf_counter()
+    scene = ts.sphere_scene(n=4000, seed=2)
+    cams, images = tr.cameras, tr.images
+    del tr
+    tr, rec = ts.forced_growth(scene, cams, images)
+    torch.cuda.synchronize()
+    log(f"19b forced growth: {time.perf_counter() - t0:.2f} s; first render "
+        f"{rec['first_pairs']} pairs, pair capacity "
+        f"{rec['pair_capacity_start']} -> {rec['pair_capacity_final']}, "
+        f"model capacity {rec['model_capacity_start']} -> "
+        f"{rec['model_capacity_final']}, alive {rec['alive_final']}")
+    log_record("19b forced growth", rec)
+    check(rec["taken_steps"] == tr.iteration == ts.FORCED_ITERS,
+          f"19b {ts.FORCED_ITERS} taken steps")
+    check(rec["capacity_grows"] >= 1, "19b grow_capacity fired")
+    check(rec["pair_capacity_grows"] >= 1, "19b pair-overflow redo fired")
+    check(not rec["over_capacity_steps"], "19b steps over pair capacity")
+    check(rec["params_finite"] and all(map(math.isfinite, rec["losses"])),
+          "19b finite params and losses")
+    check_launches("19b forced growth", rec["launches"], rec["taken_steps"],
+                   rec["taken_steps"] + rec["pair_capacity_grows"])
+    errs["forced_growth"] = trained_step_vs_plain(tr, "19b grown step")
+    return launches, errs
+
+
+def phase_calibrate():
+    """Phase 19 (c): tools/calibrate_scene_torch.py at full width (24 ring
+    views of the 300k bench sphere at 960x576, a 30k-point init, capacity
+    2^19, pair capacity 2^22), cut to CALIBRATE_ITERS iterations; then one
+    step's K1-K4 against their plain versions on the trained state (after
+    the last densify). Returns K1-K4's launches over the tool and the max
+    abs errors."""
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
+
+    cal = load_script("tools", "calibrate_scene_torch")
+    iters = CALIBRATE_ITERS
+    counters = kernel_wrappers()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    tr, res = cal.run(iters)
+    launches = {k: c.launches for k, c in counters.items()}
+    n_densify = len(range(500, iters - 500 + 1, 100))
+    log(f"19c calibrate_scene_torch.run({iters}) (cut from the tool's 4000 "
+        f"to fit the smoke: densify 500-{iters - 500}, {n_densify} times): "
+        f"{time.perf_counter() - t0:.2f} s")
+    log_record("19c calibrate", res)
+    steps = res["taken_steps"]
+    # 24 ground-truth renders, the steps and their redos, the bench camera
+    # and the PSNR view.
+    check_launches("19c calibrate", launches, steps,
+                   cal.N_RING + steps + res["pair_capacity_grows"] + 2)
+    check(steps == iters, f"19c {iters} taken steps")
+    check(len(res["densifies"]) == n_densify, f"19c {n_densify} densifies")
+    check(res["final_loss_ma50"] < res["first_loss"], "19c loss falls")
+    check(res["alive_final"] > res["alive_start"], "19c alive rows grow")
+    check(res["params_finite"], "19c finite params")
+    check(not res["over_capacity_steps"], "19c steps over pair capacity")
+    return launches, trained_step_vs_plain(tr, "19c trained step")
+
+
+def phase_walkthrough(work):
+    """Phase 19 (d): the port's walkthrough, cell by cell, on a custom-layout
+    copy of phase 6's scene (images/, sparse/0 with its text model as
+    run_colmap leaves it), video and COLMAP skipped, WALKTHROUGH_ITERS GS
+    iterations, a seeded DLNR at checkpoints/<stereo_model>.pth (the
+    released layout), masking off; the three plotting calls left out. Then
+    the sphere's analytic depth over every view and the TSDF cell again.
+    Returns K1-K4's launches over the cells."""
+    from gs2mesh_torch.core import colmap_io
+    from gs2mesh_torch.core.ply import read_ply
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
+    from gs2mesh_torch.pipeline import PipelineArgs
+    from gs2mesh_torch.stereo import DLNR, init_dlnr_
+
+    wt = load_script("examples", "run_walkthrough_torch")
+    iters = WALKTHROUGH_ITERS
+    base = os.path.join(work, "walkthrough")
+    scene = os.path.join(base, "data", "custom", "sculpture")
+    shutil.copytree(os.path.join(work, "train_scene"), scene)
+    colmap_io.convert_bin_to_text(os.path.join(scene, "sparse", "0"))
+    os.makedirs(os.path.join(base, "checkpoints"))
+    name = PipelineArgs.for_dataset("custom").stereo_model
+    dlnr = init_dlnr_(DLNR(), torch.Generator().manual_seed(0))
+    torch.save({"module." + k: v for k, v in dlnr.state_dict().items()},
+               os.path.join(base, "checkpoints", f"{name}.pth"))
+    params = dict(device="cuda", skip_video_extraction=True,
+                  skip_colmap=True, GS_iterations=iters,
+                  GS_save_test_iterations=[iters], masker_automask=False)
+    counters = kernel_wrappers()
+    for k in counters.values():
+        k.launches = 0
+    ns, walls, skipped = wt.run_walkthrough(base, params, skip=PLOT_CALLS)
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"19d walkthrough ({wt.WALKTHROUGH}) calls left out (no matplotlib "
+        f"or plotly on this machine): {skipped}")
+    for title, s in walls.items():
+        log(f"19d cell {title!r}: {s:.3f} s")
+    check(len(skipped) == 3, f"19d left out {skipped}")
+    tr, renderer = ns["trainer"], ns["renderer"]
+    n_views = len(renderer)
+    redos = int(round(math.log2(tr.rcfg.pair_capacity / (1 << 22))))
+    # The training steps and their redos, report_psnr's 4 views, the
+    # overlap cell's pair and 2 renders a stereo view.
+    check_launches("19d walkthrough", launches, iters,
+                   iters + redos + 4 + 2 + 2 * n_views)
+    panel = ns["panel"]
+    log(f"19d panel {panel.shape} {panel.dtype}; views {n_views}, pair "
+        f"capacity redos {redos}")
+    check(panel.ndim == 3 and panel.shape[2] == 3 and panel.dtype == np.uint8,
+          f"19d panel {panel.shape} {panel.dtype}")
+    path = ns["clean_path"]
+    check(os.path.exists(path), "19d cleaned mesh written")
+    # A random DLNR's depth is no surface: custom cleaning (parts under
+    # 100k faces go) may leave nothing, so the vertex check is the
+    # analytic pass's below.
+    log(f"19d on the random DLNR's depth: mesh "
+        f"{len(ns['tsdf'].mesh.vertices)} vertices, cleaned "
+        f"{len(read_ply(path).positions)} ({path})")
+
+    # The sphere's analytic depth over every view, then the TSDF cell again.
+    for i, cam in enumerate(renderer.left_cameras):
+        K = np.array([[cam["fx"], 0, cam["cx"]], [0, cam["fy"], cam["cy"]],
+                      [0, 0, 1.0]])
+        E = np.linalg.inv(np.asarray(cam["extrinsic"], np.float64))
+        depth = sphere_depth(K, E, cam["width"], cam["height"])
+        out = os.path.join(renderer.render_folder_name(i), f"out_{name}")
+        np.save(os.path.join(out, "depth.npy"), depth)
+        np.save(os.path.join(out, "occlusion_mask.npy"),
+                np.ones(depth.shape, bool))
+    (tsdf_cell,) = [c for c in wt.walkthrough_cells()
+                    if c[0].startswith("TSDF")]
+    t0 = time.perf_counter()
+    wt.run_cell(ns, *tsdf_cell)
+    rad = np.linalg.norm(read_ply(ns["clean_path"]).positions, axis=1)
+    voxel = ns["args"].TSDF_voxel / 512.0
+    med = float(np.median(np.abs(rad - 1.0)))
+    log(f"19d TSDF cell on the analytic depth: {time.perf_counter() - t0:.3f}"
+        f" s, {len(rad)} cleaned vertices, median | |v| - 1 | {med:.5f} "
+        f"(voxel {voxel:.5f})")
+    check(len(rad) > 1000 and med < 2 * voxel,
+          "19d cleaned mesh on the analytic depth")
+    return launches
+
+
 def main():
     global SAVE_FORWARD_DIR
     import argparse
@@ -3851,7 +4153,22 @@ def main():
     t_phase = time.perf_counter()
     phase_utils_viz(work, serving, stereo_dirs)
     log(f"phase utils + viz: {time.perf_counter() - t_phase:.1f} s")
+    sustained = {}
+    t_phase = time.perf_counter()
+    sustained["launches_trainsmoke"], trained_err = phase_trainsmoke()
+    log(f"phase 19 trainsmoke: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    sustained["launches_calibrate"], trained_err["calibrate"] = \
+        phase_calibrate()
+    log(f"phase 19 calibrate: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    sustained["launches_walkthrough"] = phase_walkthrough(work)
+    log(f"phase 19 walkthrough: {time.perf_counter() - t_phase:.1f} s")
     for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
+        for name, launches in sustained.items():
+            row[name] = launches[key]
+        row["trained_vs_plain_max_abs_err"] = {
+            path: err[key] for path, err in trained_err.items()}
         row["launches_viewer"] = viewer[key]
         row["launches_gui"] = gui[key]
         row["launches_sharded"] = sharded[key]

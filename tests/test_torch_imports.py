@@ -1,7 +1,9 @@
-"""The PyTorch port and chip_smoke.py must not import JAX or the JAX package,
-and must not import PIL, OpenCV or matplotlib when a module is imported
-(the card's machine has none of them; a function that needs one imports it
-when it runs).
+"""The PyTorch port, chip_smoke.py, the port's tools (tools/*_torch.py) and
+its walkthrough (examples/*_torch.py) must not import JAX, the JAX package,
+tests/ (tests/scenes.py imports JAX) or __graft_entry__; the port, the smoke
+and the tools must not import PIL, OpenCV or matplotlib when a module is
+imported (the card's machine has none of them; a function that needs one
+imports it when it runs; the walkthrough's overlap cell guards its pyplot).
 
 Checked statically (an AST scan of every import statement): the test
 process itself has JAX loaded, so sys.modules cannot tell."""
@@ -12,8 +14,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "gs2mesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "gs2mesh_tpu")
+FILES = (sorted((ROOT / "gs2mesh_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*_torch.py")))
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+BANNED = ("jax", "jaxlib", "gs2mesh_tpu", "tests", "__graft_entry__")
 NOT_AT_IMPORT = ("PIL", "cv2", "matplotlib", "plotly")
 
 
@@ -41,7 +45,8 @@ def module_level_imports(path: Path):
     yield from visit(ast.parse(path.read_text(), str(path)))
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", FILES + EXAMPLES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = [m for m in imported_modules(path)
            if m.split(".")[0] in BANNED]
@@ -79,6 +84,11 @@ def test_scan_sees_the_port():
                    "parallel/sharded_train", "parallel/inference",
                    "parallel/multihost"):
         assert f"gs2mesh_torch/{module}.py" in names
+    assert {"tools/trainsmoke_chip_torch.py",
+            "tools/calibrate_scene_torch.py"} <= names
+    assert [str(p.relative_to(ROOT)) for p in EXAMPLES] == [
+        "examples/custom_data_walkthrough_torch.py",
+        "examples/run_walkthrough_torch.py"]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
