@@ -205,15 +205,31 @@ Phases (any failure raises, and the script exits non-zero):
      the overlap cell's pair, 2 a stereo view), the cleaned mesh written;
      then the sphere's analytic depth and the TSDF cell again: > 1000
      cleaned vertices within 2 voxels of the sphere;
+ 20. (after 19) the reference's schedule at scale: (a) 19c's trainer
+     carried past its first opacity reset (the reset at 3,000, then
+     iterations 3,001-3,100 with the densify at 3,100, the size prune on):
+     that densify removes exactly the opacity and world-size candidates
+     and no row for its screen size (the rows over 20 px that the JAX
+     package's rule would remove are > 0 and printed, and kept), alive
+     after >= alive before - (opacity + world-size candidates), K1-K4 once
+     per step; (b) tools/train_scale_torch.py's dense scene at full size
+     (1M ground-truth splats on a textured sphere and ground plane, 64
+     training and 8 held-out views at 960x576 rendered by the port, PNGs
+     and a binary COLMAP model with 50,000 points), the GS stage's own
+     trainer on it (pipeline.run_single.gs_trainer), the schedule's
+     iterations 201-500 (the first densify at 500) by 100-iteration
+     window, then one step's K1-K4 against their plain versions on that
+     state at phase 3's limits (as for 19 a-c);
  18. the card's name and power limit again, the "kernels" JSON line (K1-K3
      with their strided ms and bounds per G; every kernel with its
-     launches on the viewer, GUI, sharded, trainsmoke, calibrate and
-     walkthrough paths and its max abs error against the plain version on
-     the trained states of 19 a-c), and the last line: {"ok": true,
-     "device": {...}}.
+     launches on the viewer, GUI, sharded, trainsmoke, calibrate,
+     walkthrough, size-prune and dense-scene paths and its max abs error
+     against the plain version on the trained states of 19 a-c and 20 b),
+     and the last line: {"ok": true, "device": {...}}.
 Scratch files go to smoke_out/ beside this script and are removed at the end.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -3914,8 +3930,8 @@ def phase_calibrate():
     views of the 300k bench sphere at 960x576, a 30k-point init, capacity
     2^19, pair capacity 2^22), cut to CALIBRATE_ITERS iterations; then one
     step's K1-K4 against their plain versions on the trained state (after
-    the last densify). Returns K1-K4's launches over the tool and the max
-    abs errors."""
+    the last densify). Returns K1-K4's launches over the tool, the max abs
+    errors and the trainer (phase 20 (a) carries it on)."""
     from gs2mesh_torch.ops.rasterizer import kernel_wrappers
 
     cal = load_script("tools", "calibrate_scene_torch")
@@ -3942,7 +3958,7 @@ def phase_calibrate():
     check(res["alive_final"] > res["alive_start"], "19c alive rows grow")
     check(res["params_finite"], "19c finite params")
     check(not res["over_capacity_steps"], "19c steps over pair capacity")
-    return launches, trained_step_vs_plain(tr, "19c trained step")
+    return launches, trained_step_vs_plain(tr, "19c trained step"), tr
 
 
 def phase_walkthrough(work):
@@ -4027,6 +4043,146 @@ def phase_walkthrough(work):
     check(len(rad) > 1000 and med < 2 * voxel,
           "19d cleaned mesh on the analytic depth")
     return launches
+
+
+
+# ---------------------------------------------------------------- phase 20
+SIZE_PRUNE_RESET = 3000       # 20 (a): the reset the size prune follows
+SCALE_START, SCALE_END = 200, 500   # 20 (b): the schedule's iterations 201-500
+
+
+def phase_size_prune(tr):
+    """Phase 20 (a): 19c's calibrate trainer carried on as the schedule
+    does past its first opacity reset (iteration SIZE_PRUNE_RESET: the
+    reset, then iterations 3,001-3,100 with the densify at 3,100, where
+    Trainer.densify turns the size prune on). The densify's prune removes
+    exactly the alive rows under the opacity cull or over a tenth of the
+    scene extent in the world, and none for its screen size: every alive
+    row over 20 px on screen (JAX's rule would remove them; there must be
+    some, and they are printed) that passes both tests is kept, and
+    max_radii2D comes back zero. Returns K1-K4's launches over the 100
+    steps."""
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
+
+    it = SIZE_PRUNE_RESET
+    tr.cfg = dataclasses.replace(tr.cfg, iterations=it + 100,
+                                 densify_until_iter=it + 100,
+                                 opacity_reset_interval=it)
+    tr.iteration = it
+    tr.reset_opacity()
+    seen = {}
+    densify = tr.densify
+
+    def watched():
+        st, p = tr.model.state, tr.model.params
+        alive = st.alive.clone()
+        seen.update(
+            iteration=tr.iteration, alive=alive,
+            opacity=alive & (torch.sigmoid(p.opacity[:, 0]) < 0.005),
+            world=alive & (torch.exp(p.scaling).amax(1)
+                           > 0.1 * tr.scene_extent),
+            screen=alive & (st.max_radii2D > 20.0))
+        seen["stats"] = densify()
+        seen["after"] = tr.model.state.alive.clone()
+        return seen["stats"]
+
+    tr.densify = watched
+    counters = kernel_wrappers()
+    for k in counters.values():
+        k.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    pcap = tr.rcfg.pair_capacity
+    tr.train(100, callback=lambda t, out: losses.append(float(out.loss)))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    del tr.densify
+    alive, after = seen["alive"], seen["after"]
+    opacity, world, screen = seen["opacity"], seen["world"], seen["screen"]
+    n_prune = seen["stats"]["n_prune"]
+    by_size = screen & ~opacity & ~world
+    # A growth after the densify appends dead rows: the old rows keep
+    # their slots.
+    n = {k: int(v.sum()) for k, v in dict(
+        alive_before=alive, alive_after=after, opacity=opacity, world=world,
+        union=opacity | world, jax_screen=screen, screen_only=by_size,
+        screen_only_kept=by_size & after[:alive.shape[0]],
+        jax_would_keep=alive & ~(opacity | world | screen)).items()}
+    log(f"20a size prune at {seen['iteration']} "
+        f"({time.perf_counter() - t0:.2f} s for 100 steps after the reset "
+        f"at {it}): alive {n['alive_before']}"
+        f" -> {n['alive_after']}; candidates opacity {n['opacity']}, world "
+        f"size {n['world']} (either {n['union']}); pruned {n_prune}; rows over"
+        f" 20 px on screen that JAX's rule removes {n['jax_screen']} (over 20"
+        f" px only: {n['screen_only']}, kept {n['screen_only_kept']}); JAX's "
+        f"rule would keep {n['jax_would_keep']}; densify stats "
+        f"{seen['stats']}; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    check(seen["iteration"] == it + 100, "20a densify at 3100")
+    check(tr.iteration == it + 100 and len(losses) == 100, "20a 100 steps")
+    check(n["jax_screen"] > 0, "20a rows over 20 px for JAX's rule")
+    check(n_prune == n["union"], "20a prunes the opacity and world-size "
+          "candidates only")
+    check(n["screen_only_kept"] == n["screen_only"],
+          "20a rows over 20 px kept")
+    check(n["alive_after"] >= n["alive_before"] - n["opacity"] - n["world"],
+          "20a alive after the densify")
+    check(not tr.model.state.max_radii2D.any(), "20a max_radii2D zeroed")
+    check(all(map(math.isfinite, losses)), "20a finite losses")
+    check(all(bool(torch.isfinite(t).all())
+              for t in tr.model.params.tensors()), "20a finite params")
+    redos = int(round(math.log2(tr.rcfg.pair_capacity / pcap)))
+    check_launches("20a size prune", launches, 100, 100 + redos)
+    return launches
+
+
+def phase_train_scale(work):
+    """Phase 20 (b): tools/train_scale_torch.py's dense scene at full size
+    (1M ground-truth splats, 64 training and 8 held-out views at 960x576,
+    the binary COLMAP model with 50,000 points), the GS stage's trainer on
+    it (pipeline.run_single.gs_trainer), the schedule's iterations
+    SCALE_START + 1 to SCALE_END (the first densify, at 500, among them)
+    recorded by train_recorded in 100-iteration windows; then one step's
+    K1-K4 against their plain versions on that state. Returns K1-K4's
+    launches (the 72 ground-truth renders, the steps and their redos) and
+    the max abs errors."""
+    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
+
+    ts = load_script("tools", "train_scale_torch")
+    counters = kernel_wrappers()
+    for k in counters.values():
+        k.launches = 0
+    root = os.path.join(work, "train_scale")
+    scene = ts.write_scene(root, device="cuda")
+    n_views = len(scene["gt_pairs"]["images"]) + len(
+        scene["gt_pairs"]["heldout"])
+    log(f"20b dense scene: {ts.N_GAUSS} splats, {n_views} views written in "
+        f"{scene['scene_s']:.2f} s; ground-truth pairs a training view "
+        f"{min(scene['gt_pairs']['images'])}-"
+        f"{max(scene['gt_pairs']['images'])}; extent "
+        f"{scene['scene_extent']:.4f}")
+    t0 = time.perf_counter()
+    tr = ts.gs_trainer(root, SCALE_END, white_background=False,
+                       device="cuda")
+    log(f"20b gs_trainer: {time.perf_counter() - t0:.2f} s, "
+        f"{tr.num_alive()} rows of {tr.capacity}, {len(tr.cameras)} views")
+    tr.iteration = SCALE_START
+    steps = SCALE_END - SCALE_START
+    rec = ts.smoke.train_recorded(tr, steps, window=100)
+    log_record("20b dense scene", rec)
+    launches = {k: c.launches for k, c in counters.items()}
+    losses = rec["losses"]
+    check(rec["taken_steps"] == steps and tr.iteration == SCALE_END,
+          f"20b {steps} taken steps")
+    check([d["iteration"] for d in rec["densifies"]] == [SCALE_END],
+          "20b the densify at 500")
+    check(rec["densifies"][0]["alive_after"]
+          > rec["densifies"][0]["alive_before"], "20b densify grew the model")
+    check(not rec["over_capacity_steps"], "20b steps over pair capacity")
+    check(np.mean(losses[-50:]) < np.mean(losses[:50]), "20b loss falls")
+    check(ts.smoke.params_finite(tr.model), "20b finite params")
+    check_launches("20b dense scene", launches, steps,
+                   n_views + steps + rec["pair_capacity_grows"])
+    return launches, trained_step_vs_plain(tr, "20b dense scene step")
 
 
 def main():
@@ -4158,12 +4314,20 @@ def main():
     sustained["launches_trainsmoke"], trained_err = phase_trainsmoke()
     log(f"phase 19 trainsmoke: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    sustained["launches_calibrate"], trained_err["calibrate"] = \
+    sustained["launches_calibrate"], trained_err["calibrate"], cal_tr = \
         phase_calibrate()
     log(f"phase 19 calibrate: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     sustained["launches_walkthrough"] = phase_walkthrough(work)
     log(f"phase 19 walkthrough: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    sustained["launches_size_prune"] = phase_size_prune(cal_tr)
+    del cal_tr
+    log(f"phase 20 size prune: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    sustained["launches_train_scale"], trained_err["train_scale"] = \
+        phase_train_scale(work)
+    log(f"phase 20 dense scene: {time.perf_counter() - t_phase:.1f} s")
     for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
         for name, launches in sustained.items():
             row[name] = launches[key]

@@ -301,7 +301,7 @@ class DensifyConfig(NamedTuple):
     percent_dense: float = 0.01         # fraction of scene extent
     opacity_cull: float = 0.005         # min_opacity for pruning
     split_scale_div: float = 1.6        # scale shrink for split children
-    max_screen_size: float = 0.0        # 0 disables screen-size prune
+    max_screen_size: float = 0.0        # > 0: the size prune (size_threshold)
 
 
 def accumulate_densification_stats(state: GaussianState, screenspace_grad,
@@ -365,7 +365,14 @@ def densify_and_prune_draws(params: GaussianParams, state: GaussianState,
       split: grad >= thr and larger: the parent is resampled in place
              (draw z1) and one new row takes the second sample (z2), both
              at scale / 1.6;
-      prune: opacity < cull, or screen / world size too large.
+      prune: opacity < cull, or (with ``max_screen_size`` > 0) a world
+             size over a tenth of the scene extent.
+    The reference's densification_postfix sets max_radii2D to zeros for
+    every row, and both its clone and its split pass call it before
+    prune_points, so its screen-size test (``big_points_vs``) sees zeros
+    and never prunes: here too max_radii2D is zeroed for every row before
+    the prune and stays zero in the returned state. (The JAX package keeps
+    each alive row's radii and prunes rows ever over ``max_screen_size``.)
     New rows take the lowest-index dead slots; candidates past the dead
     slots are dropped (``overflow``). The Adam moments of new, pruned and
     split rows are zeroed in ``optimizer``. Returns (params, state, stats).
@@ -382,7 +389,7 @@ def densify_and_prune_draws(params: GaussianParams, state: GaussianState,
 
     prune = alive & (opacity < cfg.opacity_cull)
     if cfg.max_screen_size > 0:
-        prune = prune | (alive & (state.max_radii2D > cfg.max_screen_size))
+        # The screen-size test of the zeroed radii prunes nothing.
         prune = prune | (alive & (max_scale > 0.1 * scene_extent))
     keep = alive & ~prune
 
@@ -435,10 +442,8 @@ def densify_and_prune_draws(params: GaussianParams, state: GaussianState,
     zero_opt_rows(optimizer, dirty)
 
     zeros = torch.zeros((C,), dtype=torch.float32, device=alive.device)
-    state = GaussianState(
-        alive=new_alive,
-        max_radii2D=torch.where(new_alive, state.max_radii2D, 0.0),
-        xyz_grad_accum=zeros, denom=zeros.clone())
+    state = GaussianState(alive=new_alive, max_radii2D=zeros.clone(),
+                          xyz_grad_accum=zeros, denom=zeros.clone())
     n_clone, n_split, n_prune, n_new = torch.stack(
         [clone.sum(), split.sum(), prune.sum(), new_needed.sum()]).tolist()
     stats = dict(n_clone=n_clone, n_split=n_split, n_prune=n_prune,

@@ -49,10 +49,32 @@ def train_gs(colmap_dir: str, model_dir: str, iterations: int,
              pair_capacity: int = 1 << 22, devices: int = 1,
              device="cuda"):
     """In-process GS training stage (replaces the train.py subprocess):
-    trains on every view of the scene and saves the GS PLY and checkpoint
-    at each of ``save_iterations`` and at the last iteration. With
-    ``devices > 1`` every rank of an initialised process group of that
-    size calls it, and a ShardedTrainer trains on a (1, devices) mesh."""
+    trains gs_trainer's trainer on every view of the scene and saves the
+    GS PLY and checkpoint at each of ``save_iterations`` and at the last
+    iteration. With ``devices > 1`` every rank of an initialised process
+    group of that size calls it, and a ShardedTrainer trains on a
+    (1, devices) mesh."""
+    trainer = gs_trainer(colmap_dir, iterations, white_background,
+                         resolution, max_views, capacity, pair_capacity,
+                         devices, device)
+    save_set = set(save_iterations or [iterations])
+    save_set.add(iterations)
+
+    def cb(tr, out):
+        if tr.iteration in save_set:
+            tr.save_checkpoint(model_dir)
+
+    trainer.train(log_every=log_every, callback=cb)
+    return trainer
+
+
+def gs_trainer(colmap_dir: str, iterations: int, white_background: bool,
+               resolution: int = -1, max_views=None, capacity=None,
+               pair_capacity: int = 1 << 22, devices: int = 1,
+               device="cuda"):
+    """The GS stage's untrained trainer: load_colmap_scene ->
+    GaussianModel.from_point_cloud -> Trainer (ShardedTrainer with
+    ``devices > 1``) with TrainConfig's schedule for ``iterations``."""
     from gs2mesh_torch.models.gaussians import GaussianModel
     from gs2mesh_torch.ops.rasterizer import RasterizerConfig
     from gs2mesh_torch.train.scene import (load_colmap_scene,
@@ -94,14 +116,6 @@ def train_gs(colmap_dir: str, model_dir: str, iterations: int,
         trainer = Trainer(model=model, cameras=scene.cameras,
                           images=scene.images, cfg=cfg, rcfg=rcfg,
                           scene_extent=scene.nerf_norm_radius, device=device)
-    save_set = set(save_iterations or [iterations])
-    save_set.add(iterations)
-
-    def cb(tr, out):
-        if tr.iteration in save_set:
-            tr.save_checkpoint(model_dir)
-
-    trainer.train(log_every=log_every, callback=cb)
     return trainer
 
 

@@ -354,7 +354,8 @@ class Trainer:
     # Adaptive density control
     # ------------------------------------------------------------------
     def densify(self):
-        # Screen-size pruning activates after an opacity reset (train.py:120).
+        # The size prune activates after an opacity reset (train.py:120);
+        # as in the reference, only its world-size test can prune.
         big = 20.0 if self.iteration > self.cfg.opacity_reset_interval else 0.0
         dcfg = DensifyConfig(
             grad_threshold=self.cfg.densify_grad_threshold,

@@ -139,15 +139,24 @@ def tall_slices(rank, out_dir, G, image, target, init, cam, rcfg,
 
 def _record_densify(records):
     """Wraps train.trainer.densify_and_prune (both trainers call it there)
-    to keep each call's result."""
+    to keep each call's result: the rows, the alive mask, the returned
+    max_radii2D, and (max_screen_size, n_prune, the alive rows under the
+    opacity cull or, with the size prune on, over a tenth of the extent)."""
     from gs2mesh_torch.train import trainer
 
     inner = trainer.densify_and_prune
 
-    def wrapper(*a, **k):
-        params, state, stats = inner(*a, **k)
+    def wrapper(params, state, optimizer, extent, dcfg, gen):
+        under = torch.sigmoid(params.opacity[:, 0]) < dcfg.opacity_cull
+        if dcfg.max_screen_size > 0:
+            under |= torch.exp(params.scaling).amax(1) > 0.1 * extent
+        candidates = int((state.alive & under).sum())
+        params, state, stats = inner(params, state, optimizer, extent, dcfg,
+                                     gen)
         records.append([t.detach().clone() for t in params.tensors()]
-                       + [state.alive.clone()])
+                       + [state.alive.clone(), state.max_radii2D.clone(),
+                          torch.tensor([dcfg.max_screen_size,
+                                        stats["n_prune"], candidates])])
         return params, state, stats
 
     trainer.densify_and_prune = wrapper

@@ -85,7 +85,8 @@ def test_scan_sees_the_port():
                    "parallel/multihost"):
         assert f"gs2mesh_torch/{module}.py" in names
     assert {"tools/trainsmoke_chip_torch.py",
-            "tools/calibrate_scene_torch.py"} <= names
+            "tools/calibrate_scene_torch.py",
+            "tools/train_scale_torch.py"} <= names
     assert [str(p.relative_to(ROOT)) for p in EXAMPLES] == [
         "examples/custom_data_walkthrough_torch.py",
         "examples/run_walkthrough_torch.py"]

@@ -447,7 +447,9 @@ def trainer_world(tmp_path_factory):
 def test_sharded_trainer_densify_matches_trainer(trainer_world):
     """The alive count after densify + opacity reset equals the port's
     Trainer's on the same seeds; every rank computed the same whole-model
-    rows at each densify."""
+    rows at each densify. The densifies after the reset at 5 run the size
+    prune, and it removes exactly the opacity and world-size candidates:
+    no row goes for its screen size (max_radii2D comes back zero)."""
     from gs2mesh_torch.train.trainer import Trainer
 
     _, _, _, targets, init, cams = step_case()
@@ -462,6 +464,12 @@ def test_sharded_trainer_densify_matches_trainer(trainer_world):
     for a, b in zip(r0["densify"], r1["densify"]):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+    sizes = []
+    for *_, radii, (size, n_prune, candidates) in r0["densify"]:
+        assert not radii.any()
+        assert n_prune == candidates
+        sizes.append(float(size))
+    assert sizes == [0.0, 20.0, 20.0]
     np.testing.assert_array_equal(r0["model"]["state"]["alive"],
                                   ref.model.state.alive.numpy())
 

@@ -151,9 +151,17 @@ def test_stats_and_reset_opacity_match_jax():
 def test_densify_and_prune_matches_jax(max_screen_size):
     """Forced clone / split / prune plus random gradients, with JAX's
     normal draws for the same key: row for row equal, Adam rows zeroed
-    alike. Without the screen-size prune the candidates outnumber the dead
-    slots (overflow); with it, the forced split is pruned by its world size
-    and the pruned rows leave room."""
+    alike. Without the size prune the candidates outnumber the dead slots
+    (overflow); with it, the forced split is pruned by its world size and
+    the pruned rows leave room.
+
+    The port gets radii of 0-30 px; JAX gets the same state with
+    max_radii2D zeroed, the reference's state at its prune: graphdeco's
+    scene/gaussian_model.py ``densification_postfix`` sets
+    ``self.max_radii2D = torch.zeros(...)`` for every row, and
+    ``densify_and_clone`` and ``densify_and_split`` both call it before
+    ``densify_and_prune`` calls ``prune_points``. The port's returned
+    max_radii2D is zero."""
     pts, cols = point_cloud(50, 3)
     jm = jg.GaussianModel.from_point_cloud(pts, cols, max_sh_degree=1,
                                            capacity=64)
@@ -184,8 +192,9 @@ def test_densify_and_prune_matches_jax(max_screen_size):
     dcfg = DensifyConfig(grad_threshold=1e-3, percent_dense=0.01,
                          max_screen_size=max_screen_size)
     key = jax.random.PRNGKey(0)
-    jp, js, jopt, jstats = jg.densify_and_prune(params, state, opt, 2.0,
-                                                dcfg, key, 1)
+    jp, js, jopt, jstats = jg.densify_and_prune(
+        params, state._replace(max_radii2D=jnp.zeros(C, jnp.float32)), opt,
+        2.0, dcfg, key, 1)
     k1, k2 = jax.random.split(key)
     z1 = torch.tensor(np.asarray(jax.random.normal(k1, (C, 3))))
     z2 = torch.tensor(np.asarray(jax.random.normal(k2, (C, 3))))
@@ -209,6 +218,7 @@ def test_densify_and_prune_matches_jax(max_screen_size):
                                    atol=1e-6, err_msg=f)
     for f, v in np_tree(js).items():
         np.testing.assert_array_equal(getattr(s, f).numpy(), v, err_msg=f)
+    assert not s.max_radii2D.any()
     ref = jax_adam_groups(jopt)
     for group in optimizer.param_groups:
         st = optimizer.state[group["params"][0]]
@@ -217,6 +227,43 @@ def test_densify_and_prune_matches_jax(max_screen_size):
         np.testing.assert_array_equal(st["exp_avg_sq"].numpy(), nu)
         assert int(st["step"]) == int(count) == 7
 
+
+
+def test_size_prune_keeps_rows_ever_large_on_screen():
+    """The fault the zeroed radii repair: every alive row has been over
+    20 px on screen (max_radii2D 21-40) and passes the opacity and
+    world-size tests. JAX's densify at max_screen_size 20 prunes them all
+    and empties the model; the port, like the reference (whose
+    ``densification_postfix`` zeroes max_radii2D before ``prune_points``),
+    keeps them all."""
+    pts, cols = point_cloud(50, 3)
+    jm = jg.GaussianModel.from_point_cloud(pts, cols, max_sh_degree=1,
+                                           capacity=64)
+    C = jm.capacity
+    alive = np.asarray(jm.state.alive)
+    radii = np.where(alive, np.random.default_rng(1).uniform(
+        21, 40, size=C), 0).astype(np.float32)
+    state = jm.state._replace(max_radii2D=jnp.asarray(radii))
+    extent = 30.0
+    opacity = 1 / (1 + np.exp(-np.asarray(jm.params.opacity[:, 0])))
+    max_scale = np.exp(np.asarray(jm.params.scaling)).max(1)
+    assert (opacity[alive] >= 0.005).all()
+    assert (max_scale[alive] <= 0.1 * extent).all()
+    dcfg = DensifyConfig(max_screen_size=20.0)
+
+    _, js, _, jstats = jg.densify_and_prune(jm.params, state, None, extent,
+                                            dcfg, jax.random.PRNGKey(0), 1)
+    assert int(jstats["n_prune"]) == alive.sum() == 50
+    assert not np.asarray(js.alive).any()
+
+    m = GaussianModel(params_from_numpy(np_tree(jm.params), "cpu"), 1,
+                      state_from_numpy(np_tree(state), "cpu"))
+    z = torch.zeros((C, 3))
+    _, s, stats = densify_and_prune_draws(m.params, m.state, None, extent,
+                                          dcfg, z, z)
+    assert stats["n_prune"] == 0
+    np.testing.assert_array_equal(s.alive.numpy(), alive)
+    assert not s.max_radii2D.any()
 
 def test_expon_lr_matches_jax():
     assert expon_lr(0, 1e-2, 1e-4, max_steps=100) == pytest.approx(1e-2,

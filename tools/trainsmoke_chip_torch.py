@@ -137,10 +137,14 @@ def params_finite(model) -> bool:
 
 
 def prune_candidates(tr: Trainer) -> dict:
-    """Alive rows over each prune threshold of Trainer.densify: opacity
-    under 0.005, and (applied only after the first opacity reset) a
-    largest screen radius so far over 20 px or a world scale over a tenth
-    of the scene extent."""
+    """Alive rows over each threshold of the size and opacity prunes:
+    opacity under 0.005 and (applied only after the first opacity reset) a
+    world scale over a tenth of the scene extent, which Trainer.densify
+    prunes; and screen_over_20px, the rows whose largest screen radius
+    since the last densify is over 20 px, which the JAX package's densify
+    prunes after the first reset and the port's (as the reference's) does
+    not. (Until the port zeroed every row's radii at each densify, the
+    radius was the largest since the row was born, as JAX keeps it.)"""
     st, p = tr.model.state, tr.model.params
     return dict(
         opacity_under_0_005=int((st.alive & (torch.sigmoid(
@@ -163,17 +167,20 @@ def device_activity(prof):
     return sum(e.duration_ns() for e in ev) / 1e6, len(ev)
 
 
-def train_recorded(tr: Trainer, iterations: int, log_every: int = 0) -> dict:
+def train_recorded(tr: Trainer, iterations: int, log_every: int = 0,
+                   window: int = WINDOW, callback=None) -> dict:
     """tr.train(iterations) with a record of every taken step: the losses,
     the step walls (host clock, synchronised after each step, so a step's
-    wall includes its densify or redo), each densify's alive rows, pairs
-    and the prune candidates of the step before it, the growth of the
-    model and of the pair capacity, K1-K4 launches and the peak device
-    memory. On the card the steps PROFILED of each window run under
+    wall includes its densify or redo), each densify's alive rows, pairs,
+    step wall and the prune candidates of the step before it, every growth
+    of the model and of the pair capacity (growths: iteration, what, old,
+    new), K1-K4 launches and the peak device memory (also by window). On the
+    card the steps PROFILED of each ``window``-step window run under
     torch.profiler (device activity only): the window's device busy ms and
     device events a step, and its idle share against the median wall of
-    its other steps. wall_s is the whole run's host wall less profile_s,
-    the time spent starting the profiles and reading them."""
+    its other steps. ``callback(tr, out)`` runs after each taken step's
+    record. wall_s is the whole run's host wall less profile_s, the time
+    spent starting the profiles and reading them, and less callback_s."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = tr.cfg
@@ -186,15 +193,18 @@ def train_recorded(tr: Trainer, iterations: int, log_every: int = 0) -> dict:
     counters = kernel_wrappers()
     cap0, pcap0 = tr.capacity, tr.rcfg.pair_capacity
     losses, walls, pairs, alive, densifies = [], [], [], [], []
-    over_capacity = []
+    over_capacity, growths, peaks = [], [], []
     prof, busy = [None], {}      # the open profile; window -> (ms, events)
     profile_s = [0.0]            # spent starting and reading the profiles
+    callback_s = [0.0]
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     start = {k: c.launches for k, c in counters.items()}
     t0 = time.perf_counter()
-    last = [t0, tr.num_alive(), prune_candidates(tr)]
+    it0 = tr.iteration
+    last = [t0, tr.num_alive(), prune_candidates(tr),
+            dict(capacity=tr.capacity, pair_capacity=tr.rcfg.pair_capacity)]
 
     def record(t, out):
         sync()
@@ -207,38 +217,55 @@ def train_recorded(tr: Trainer, iterations: int, log_every: int = 0) -> dict:
         if pairs[-1] > t.rcfg.pair_capacity:
             over_capacity.append(t.iteration)
         it = t.iteration
+        for what, new in (("capacity", t.capacity),
+                          ("pair_capacity", t.rcfg.pair_capacity)):
+            if new != last[3][what]:
+                growths.append(dict(iteration=it, what=what,
+                                    old=last[3][what], new=new))
+                last[3][what] = new
         if densifies_at(it):
             densifies.append(dict(iteration=it, alive_before=last[1],
                                   alive_after=n, pairs=pairs[-1],
-                                  capacity=t.capacity,
+                                  capacity=t.capacity, wall_ms=walls[-1],
                                   candidates_before=last[2]))
         if densifies_at(it + 1):
             last[2] = prune_candidates(t)
-        window, offset = divmod(len(walls) - 1, WINDOW)
+        w, offset = divmod(len(walls) - 1, window)
         tp = time.perf_counter()
         if cuda and offset + 2 == PROFILED[0]:
             prof[0] = profile(activities=[ProfilerActivity.CUDA])
             prof[0].__enter__()
         elif prof[0] is not None and offset + 1 == PROFILED[-1]:
             prof[0].__exit__(None, None, None)
-            busy[window] = device_activity(prof[0])
+            busy[w] = device_activity(prof[0])
             prof[0] = None
+        if offset + 1 == window and cuda:
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
+        tc = time.perf_counter()
+        profile_s[0] += tc - tp
+        if callback is not None:
+            callback(t, out)
         last[0], last[1] = time.perf_counter(), n
-        profile_s[0] += last[0] - tp
+        callback_s[0] += last[0] - tc
 
     tr.train(iterations, log_every=log_every, callback=record)
-    wall = time.perf_counter() - t0 - profile_s[0]
+    wall = time.perf_counter() - t0 - profile_s[0] - callback_s[0]
     if prof[0] is not None:       # a last window shorter than PROFILED
         prof[0].__exit__(None, None, None)
+    if cuda and len(walls) % window:
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
     windows = []
-    for w, a in enumerate(range(0, len(walls), WINDOW)):
-        b = min(a + WINDOW, len(walls))
+    for w, a in enumerate(range(0, len(walls), window)):
+        b = min(a + window, len(walls))
         plain = [ms for i, ms in enumerate(walls[a:b], 1)
                  if not cuda or i not in PROFILED]
-        rec = dict(iterations=[a + 1, b], median_ms=float(np.median(plain)),
+        rec = dict(iterations=[it0 + a + 1, it0 + b],
+                   median_ms=float(np.median(plain)),
                    alive_end=alive[b - 1],
                    median_pairs=float(np.median(pairs[a:b])),
-                   device_busy_ms=None, device_events=None, idle_share=None)
+                   device_busy_ms=None, device_events=None, idle_share=None,
+                   peak_memory_gib=peaks[w] if cuda else None)
         if busy.get(w, (0, 0))[0] > 0:     # else: not measured
             ms, events = busy[w]
             rec.update(device_busy_ms=ms / len(PROFILED),
@@ -247,15 +274,14 @@ def train_recorded(tr: Trainer, iterations: int, log_every: int = 0) -> dict:
         windows.append(rec)
     return dict(
         losses=losses, wall_s=wall, profile_s=profile_s[0],
-        taken_steps=len(losses),
+        callback_s=callback_s[0], taken_steps=len(losses),
         step_ms_windows=windows, densifies=densifies,
         capacity_grows=int(round(math.log2(tr.capacity / cap0))),
         pair_capacity_grows=int(round(math.log2(
             tr.rcfg.pair_capacity / pcap0))),
-        over_capacity_steps=over_capacity,
+        growths=growths, over_capacity_steps=over_capacity,
         launches={k: c.launches - start[k] for k, c in counters.items()},
-        peak_memory_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
-                         if cuda else None))
+        peak_memory_gib=max(peaks) if cuda else None)
 
 
 def device_name(device) -> str:
