@@ -27,7 +27,12 @@ Phases (any failure raises, and the script exits non-zero):
      K4 also bit for bit against the float32 slot-order sum; then K1-K4
      again, the same checks, on a 60k-gaussian scene of splats a few pixels
      wide at 360x200 (ragged last tile row and column), where K2's and
-     K3's sub-box mask and K3's empty-pair branches do the work;
+     K3's sub-box mask and K3's empty-pair branches do the work; on both
+     scenes P1 (preprocess) bit-equal to preprocess_plain on every output
+     that decides a pair (rgb within 1e-6) and P2 (its backward) at the
+     scene's loss cotangent against preprocess_backward_plain and against
+     autograd of the plain forward (phase_preprocess_vs_plain), each
+     bit-identical across two runs;
   4. the main path at full width: a seeded 300k-gaussian SH-3 model written
      as a GS PLY, a 4-view COLMAP text model at 960x576, and the port's
      Renderer on cuda rendering the 4 stereo pairs to PNG; K1 and K2 must
@@ -135,10 +140,10 @@ Phases (any failure raises, and the script exits non-zero):
      layout beside a synthetic 30,522-line vocab.txt;
      SAM2Masker(gdino_checkpoint=..., gdino_vocab=..., sam2_checkpoint=
      <9b's sam2_hiera_large.pt>, box_threshold=0).segment() over phase 8's
-     8 views at 1554x1162: one finite view-0 box inside the image that
-     seeds SAM2, every left_mask.{npy,png}; predict's ms cold and the
-     median of 3 warm, the forward's device ms (CUDA events) and by
-     gdino.* range (torch.profiler, every range busy), its FLOPs and
+     8 views at 1554x1162: one finite view-0 box, its centre in the image
+     and its extent within the image's, that seeds SAM2, every
+     left_mask.{npy,png}; predict's ms cold and the median of 3 warm,
+     the forward's device ms (CUDA events) and by gdino.* range (torch.profiler, every range busy), its FLOPs and
      TFLOP/s, peak memory above what was resident before (segment(), and
      a predict's working memory); view 0 at full width on the card
      against the CPU at (a)'s limits, in both dtypes: the float64 top-k
@@ -231,8 +236,13 @@ Phases (any failure raises, and the script exits non-zero):
      reference's step-0 loss (bench_cells/reference.py, the cell's limit);
      one view of the stereo cell (seeded DLNR, 960x576, 10 iterations)
      with the committed refinement gate and within the cell's limit of
-     the float64 reference's disparity;
- 18. the card's name and power limit again, the "kernels" JSON line (K1-K3
+     the float64 reference's disparity; P1 and P2 as in phase 3 on the
+     cell's model at its loss cotangent, timed beside their plain
+     versions and their bounds;
+     on every path that counts K1-K4 launches, P1 must launch with every
+     K1 (once a render) and P2 with every K3 (once a step);
+ 18. the card's name and power limit again, the "kernels" JSON line (P1
+     and P2 after K1-K4, timed on the training cell's model; K1-K3
      with their strided ms and bounds per G; every kernel with its
      launches on the viewer, GUI, sharded, trainsmoke, calibrate,
      walkthrough, size-prune, dense-scene and bench-cell paths and its max
@@ -286,6 +296,34 @@ def check(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
+
+
+def path_wrappers():
+    """The wrappers a path's launches are read from: K1-K4 and P1 / P2."""
+    from gs2mesh_torch.ops.rasterizer import (kernel_wrappers,
+                                              preprocess_kernel_wrappers)
+
+    return {**kernel_wrappers(), **preprocess_kernel_wrappers()}
+
+
+PREP_LAUNCHES = {}             # path -> P1's and P2's launches on it
+
+
+def read_launches(counters, path=None, p1_outside=0):
+    """K1-K4's launches since ``counters`` (path_wrappers()) were zeroed.
+    P1 must have launched with every K1 (once a render) and P2 with every
+    K3 (once a taken step): every render preprocesses once, and every
+    backward through K3 goes on through P2. p1_outside counts the path's
+    preprocess calls outside a render (render_golden's targets, a tool's
+    statistics), which launch P1 and no K1. P1's and P2's counts are kept
+    in PREP_LAUNCHES[path] for the kernels line."""
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches["P1"] == launches["K1"] + p1_outside
+          and launches["P2"] == launches["K3"],
+          f"P1 / P2 launched as K1 (+ {p1_outside}) / K3: {launches}")
+    if path is not None:
+        PREP_LAUNCHES[path] = {k: launches[k] for k in ("P1", "P2")}
+    return {k: v for k, v in launches.items() if k.startswith("K")}
 
 
 def compositor_ops(plain, ops_per_accepted):
@@ -481,7 +519,8 @@ def replay_forward(case_dir):
 
 
 def phase_kernels_vs_plain(what, n, W, H, scale, min_pairs_per_tile):
-    """K1 and K2 against their plain versions on a seeded sphere scene."""
+    """K1 and K2 against their plain versions on a seeded sphere scene,
+    then P1 and P2 (phase_preprocess_vs_plain)."""
     from gs2mesh_torch.core.camera import make_camera
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
     from gs2mesh_torch.ops.rasterizer import RasterizerConfig
@@ -526,6 +565,9 @@ def phase_kernels_vs_plain(what, n, W, H, scale, min_pairs_per_tile):
               f"{what}: K2 bit-identical across two runs")
         compare_composite(color_k, T_k, plain.color, plain.final_T, what)
     log_k3_evaluations(what, plain)
+    phase_preprocess_vs_plain(
+        what, inp, cam, 3, cfg,
+        lambda color, T: (color ** 2).mean() + 0.1 * T.mean())
     return what, pairs, feat9, prep, color_k, T_k, W, H, cfg
 
 
@@ -663,6 +705,169 @@ def phase_backward_vs_plain(what, pairs, feat9, prep, color, final_T, W, H,
     return compare_backward(k3a, k4a, plain3, pairs, prep.tiles_touched, what)
 
 
+# P1 / P2, FP32 operations per gaussian at SH degree 3, counted from
+# csrc/preprocess.cu (the projection and EWA terms, which P2 recomputes,
+# ~330; the radius, rect and colour of P1 ~190; P2's chain rule ~450 and
+# its SH basis, derivatives and sums ~320). At any degree the byte bound
+# is over ten times the operation bound.
+P1_OPS_PER_GAUSSIAN = 520
+P2_OPS_PER_GAUSSIAN = 1100
+PREP_FIELDS = ("means2d", "depths", "conic", "rgb", "radius", "rect",
+               "tiles_touched")
+
+
+def preprocess_work(n, K):
+    """P1's and P2's bytes (each input read once, each output written once:
+    P1 reads means, scales, rotation, opacity and the SH row and writes 15
+    values; P2 reads the same but the opacity, and the 8 cotangents, and
+    writes the 10 parameter gradients and the SH row's) and operations."""
+    p1 = n * 4 * ((3 + 3 + 4 + 1 + 3 * K) + (2 + 1 + 3 + 3 + 1 + 4 + 1))
+    p2 = n * 4 * ((3 + 3 + 4 + 3 * K + 2 + 3 + 3) + (3 + 3 + 4 + 3 * K))
+    return ((p1, n * P1_OPS_PER_GAUSSIAN), (p2, n * P2_OPS_PER_GAUSSIAN))
+
+
+def fused_inputs(inp):
+    """A render's activated inputs as P1 and P2 take them."""
+    n = inp["means3d"].shape[0]
+    return tuple(x.float().contiguous() for x in (
+        inp["means3d"], inp["scales"], inp["rotations"],
+        inp["opacities"].reshape(n), inp["shs"]))
+
+
+def preprocess_cotangents(inp, cam, sh_degree, cfg, loss_fn):
+    """The cotangents of means2d, conic and rgb that a training step's
+    backward (K3 + K4) hands the preprocess: feat9's gradient under
+    loss_fn(color, final_T)."""
+    from gs2mesh_torch.ops.rasterizer.composite import composite
+    from gs2mesh_torch.ops.rasterizer.emit import (build_feat9, emit_pairs,
+                                                   sort_pairs)
+    from gs2mesh_torch.ops.rasterizer.preprocess import preprocess
+
+    W, H = cam.width, cam.height
+    gx, gy = cfg.grid_size(W, H)
+    with torch.no_grad():
+        prep = preprocess(inp["means3d"], inp["scales"], inp["rotations"],
+                          inp["opacities"], inp["shs"], cam, sh_degree, cfg)
+        feat9 = build_feat9(prep)
+        pairs = sort_pairs(emit_pairs(feat9, prep.depths, prep.rect,
+                                      prep.tiles_touched, W, H, cfg), gx * gy)
+    check(not bool(pairs.overflow), "pair overflow")
+    feat9.requires_grad_(True)
+    color, final_T, _ = composite(feat9, pairs, prep.tiles_touched, W, H, cfg)
+    loss_fn(color, final_T).backward()
+    g = feat9.grad
+    return (g[:, 0:2].contiguous(), g[:, 2:5].contiguous(),
+            g[:, 6:9].contiguous())
+
+
+def compare_grads(got, ref, what, rel, col, worst):
+    """Gradients against a reference, K3's form: a value is within
+    tolerance if within ``rel`` of itself plus ``col`` of its column's
+    largest magnitude; >= 99.99% must be, and none more than ``worst`` of
+    its column's largest magnitude apart. Returns the max abs error."""
+    errs = []
+    for name, a, b in zip(("means3d", "scales", "rotations", "shs"), got,
+                          ref):
+        a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+        scale = b.abs().amax(0)
+        gap = (a - b).abs()
+        ok = gap <= rel * b.abs() + col * scale
+        share = float(ok.float().mean())
+        worst_gap = float((gap / scale.clamp_min(1e-30)).max())
+        finite = bool(torch.isfinite(a).all())
+        log(f"{what} {name}: {gap.numel()} values, {100 * share:.5f}% "
+            f"within tolerance, max abs err {float(gap.max()):.3e} (largest "
+            f"gap / column max {worst_gap:.3e})")
+        check(finite, f"{what} {name}: finite")
+        check(share >= 0.9999, f"{what} {name}: {share:.6f} < 0.9999")
+        check(worst_gap <= worst, f"{what} {name}: gap {worst_gap:.3e}")
+        errs.append(float(gap.max()))
+    return max(errs)
+
+
+def phase_preprocess_vs_plain(what, inp, cam, sh_degree, cfg, loss_fn,
+                              timed=False):
+    """P1 and P2 against their plain versions on a render's activated
+    inputs: P1's pair-deciding outputs (all but rgb) bit-equal to
+    preprocess_plain's, rgb within 1e-6; P2 at the render's loss cotangent
+    against preprocess_backward_plain (1e-5 relative + 1e-6 of the column
+    max, every value within 1e-4 of it) and against autograd of
+    preprocess_plain (1e-4 + 1e-5, every value within 1e-3: autograd sums
+    each gradient in its own order and float32 cancels in the covariance's
+    chain); each bit-identical across two runs. With timed=True also the
+    ms of both and of their plain versions, and the bounds. Returns the
+    max abs errors (and the times)."""
+    from gs2mesh_torch.ops.rasterizer.preprocess import (
+        preprocess_backward_cuda, preprocess_backward_plain,
+        preprocess_forward_cuda, preprocess_plain)
+
+    x = fused_inputs(inp)
+    n, K = x[0].shape[0], x[4].shape[1]
+    fwd = (*x, cam, sh_degree, cfg, 1.0)
+    with torch.no_grad():
+        k1, k2 = preprocess_forward_cuda(*fwd), preprocess_forward_cuda(*fwd)
+        plain = preprocess_plain(*x, cam, sh_degree, cfg)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"{what}: P1 bit-identical across two runs")
+    for name, a in zip(PREP_FIELDS, k1):
+        if name != "rgb":
+            check(torch.equal(a, getattr(plain, name)),
+                  f"{what}: P1 {name} bit-equal to the plain version")
+    p1_err = float((k1[3] - plain.rgb).abs().max())
+    check(p1_err <= 1e-6, f"{what}: P1 rgb max abs err {p1_err:.3e}")
+    log(f"{what}: P1 == plain bit for bit on means2d, depths, conic, radius, "
+        f"rect, tiles_touched ({n} gaussians, {int((k1[4] > 0).sum())} on "
+        f"screen, {int(k1[6].sum())} tiles touched), rgb max abs err "
+        f"{p1_err:.3e}; bit-identical across two runs")
+
+    cot = preprocess_cotangents(inp, cam, sh_degree, cfg, loss_fn)
+    bwd = (x[0], x[1], x[2], x[4], cam, sh_degree, cfg, 1.0, *cot)
+    with torch.no_grad():
+        g1, g2 = preprocess_backward_cuda(*bwd), preprocess_backward_cuda(*bwd)
+        gp = preprocess_backward_plain(*bwd)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+          f"{what}: P2 bit-identical across two runs")
+    p2_err = compare_grads(g1, gp, f"{what}: P2 vs plain", 1e-5, 1e-6, 1e-4)
+    leaves = [t.clone().requires_grad_(True) for t in x]
+    out = preprocess_plain(*leaves, cam, sh_degree, cfg)
+    ga = torch.autograd.grad((out.means2d, out.conic, out.rgb),
+                             [leaves[i] for i in (0, 1, 2, 4)], cot)
+    compare_grads(g1, ga, f"{what}: P2 vs autograd", 1e-4, 1e-5, 1e-3)
+    del leaves, out, ga
+    res = dict(P1=p1_err, P2=p2_err)
+    if not timed:
+        return res
+    with torch.no_grad():
+        ms = dict(
+            P1=cuda_time_ms(lambda: preprocess_forward_cuda(*fwd), 50,
+                            queued=True),
+            P2=cuda_time_ms(lambda: preprocess_backward_cuda(*bwd), 50,
+                            queued=True),
+            P1_plain=cuda_time_ms(
+                lambda: preprocess_plain(*x, cam, sh_degree, cfg), 10),
+            P2_plain=cuda_time_ms(lambda: preprocess_backward_plain(*bwd),
+                                  10))
+    work = preprocess_work(n, K)
+    rows = []
+    for key, name, (nbytes, nops), err in (
+            ("P1", "preprocess_forward", work[0], p1_err),
+            ("P2", "preprocess_backward", work[1], p2_err)):
+        bms, by = bound(nbytes, nops)
+        log(f"{what}: {key} {ms[key]:.4f} ms (plain {ms[key + '_plain']:.4f}),"
+            f" bound {bms:.4f} ms ({by}: {nbytes} bytes, {nops} FP32 ops), "
+            f"{bms / ms[key]:.3f} of it")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "gs2mesh_torch/csrc/preprocess.cu",
+                     "replaces": "gs2mesh_tpu/ops/rasterizer/preprocess.py:94 "
+                                 "(jnp under jit, no pallas_call)",
+                     "max_abs_err": err, "ms": ms[key],
+                     "plain_ms": ms[key + "_plain"], "bound_ms": bms,
+                     "bound_by": by, "library_ms": None})
+    return res, rows
+
+
 def write_colmap_model(sparse, n_views, width, height, fx, points=None,
                        binary=False):
     from gs2mesh_torch.core import colmap_io
@@ -688,6 +893,8 @@ def phase_main_path(work):
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
     from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
     from gs2mesh_torch.ops.rasterizer.emit import emission_cuda
+    from gs2mesh_torch.ops.rasterizer.preprocess import \
+        preprocess_forward_cuda
     from gs2mesh_torch.pipeline import PipelineArgs, Renderer
 
     n_gauss, W, H, n_views = 300_000, 960, 576, 4
@@ -722,9 +929,11 @@ def phase_main_path(work):
     plain_render(r.cameras[0]["left"])            # warm-up
     r.render_single = timed_render
     emission_cuda.launches = composite_cuda.launches = 0
+    preprocess_forward_cuda.launches = 0
     images = [r.render_image_pair(i) for i in range(n_views)]
     launches = {"emit": emission_cuda.launches,
-                "composite": composite_cuda.launches}
+                "composite": composite_cuda.launches,
+                "preprocess": preprocess_forward_cuda.launches}
     r.render_single = plain_render
 
     for k, rec in enumerate(renders):
@@ -733,9 +942,11 @@ def phase_main_path(work):
             f"overflow {rec['overflow']}, launches so far K1 {rec['k1']} "
             f"K2 {rec['k2']}")
     log(f"main path launches: K1 {launches['emit']}, K2 "
-        f"{launches['composite']} over {len(renders)} renders")
+        f"{launches['composite']}, P1 {launches['preprocess']} over "
+        f"{len(renders)} renders")
     check(len(renders) == 2 * n_views, "8 renders")
-    check(launches["emit"] == launches["composite"] == len(renders),
+    check(launches["emit"] == launches["composite"]
+          == launches["preprocess"] == len(renders),
           f"kernel launches {launches} != {len(renders)} renders")
     check(not any(rec["overflow"] for rec in renders), "pair overflow")
     for i, pair in enumerate(images):
@@ -885,8 +1096,7 @@ def phase_train(work):
     from gs2mesh_torch.core.transforms import qvec2rotmat_wxyz
     from gs2mesh_torch.core import colmap_io
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
-    from gs2mesh_torch.ops.rasterizer import (RasterizerConfig,
-                                              kernel_wrappers, rasterize)
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
     from gs2mesh_torch.train.scene import load_colmap_scene
     from gs2mesh_torch.train.trainer import TrainConfig, Trainer
 
@@ -941,7 +1151,7 @@ def phase_train(work):
                           capacity=tr.model.capacity))
 
     trainer.iteration = 3090
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -950,7 +1160,7 @@ def phase_train(work):
     trainer.reset_opacity()
     trainer.train(5, callback=record)
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in counters.items()}
+    launches = read_launches(counters, "train")
 
     prev_t = t_start
     for rec in steps:
@@ -1243,7 +1453,9 @@ def phase_timings(r, launches):
 
 
 OWN_KERNELS = {"K1": "emit_pairs_kernel", "K2": "composite_forward_kernel",
-               "K3": "composite_backward", "K4": "segment_sum_kernel"}
+               "K3": "composite_backward", "K4": "segment_sum_kernel",
+               "P1": "preprocess_forward_kernel",
+               "P2": "preprocess_backward_kernel"}
 
 
 def own_kernel_ms(prof, n):
@@ -1439,10 +1651,12 @@ def range_times(prof, n, prefixes):
 def run_stereo_stage(stage, r, policy, what):
     """One Stereo.run() over the serving views under the matmul policy:
     per-view wall ms (host clock), DLNR forward device ms (CUDA events),
-    the refinement branch and warm start of each forward, K1 / K2 launches
-    and peak device memory."""
+    the refinement branch and warm start of each forward, K1 / K2 / P1
+    launches and peak device memory."""
     from gs2mesh_torch.ops.rasterizer.composite import composite_cuda
     from gs2mesh_torch.ops.rasterizer.emit import emission_cuda
+    from gs2mesh_torch.ops.rasterizer.preprocess import \
+        preprocess_forward_cuda
     from gs2mesh_torch.stereo.layers import matmul_dtype
 
     marks, fwd = [], []
@@ -1465,6 +1679,7 @@ def run_stereo_stage(stage, r, policy, what):
 
     r.render_image_pair, stage._forward = render_pair, forward
     emission_cuda.launches = composite_cuda.launches = 0
+    preprocess_forward_cuda.launches = 0
     torch.cuda.reset_peak_memory_stats()
     try:
         with matmul_dtype(policy):
@@ -1473,7 +1688,8 @@ def run_stereo_stage(stage, r, policy, what):
         marks.append(time.perf_counter())
     finally:
         r.render_image_pair, stage._forward = plain_render, plain_forward
-    launches = {"K1": emission_cuda.launches, "K2": composite_cuda.launches}
+    launches = {"K1": emission_cuda.launches, "K2": composite_cuda.launches,
+                "P1": preprocess_forward_cuda.launches}
     peak = torch.cuda.max_memory_allocated()
     walls = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     fwd_ms = [s.elapsed_time(e) for s, e, _, _ in fwd]
@@ -1488,8 +1704,8 @@ def run_stereo_stage(stage, r, policy, what):
           f"one forward per view")
     check([w_ for *_, w_ in fwd] == [False] + [True] * (len(r) - 1),
           f"stereo {what}: warm start from the second view on")
-    check(launches["K1"] == launches["K2"] == 2 * len(r),
-          f"stereo {what}: K1 / K2 twice a view: {launches}")
+    check(launches["K1"] == launches["K2"] == launches["P1"] == 2 * len(r),
+          f"stereo {what}: K1 / K2 / P1 twice a view: {launches}")
     return walls, fwd_ms, launches, peak
 
 
@@ -2107,7 +2323,6 @@ def phase_pipeline(work, cfg=None):
     from gs2mesh_torch.evals.dtu import EVAL_RANGES
     from gs2mesh_torch.core.ply import read_ply
     from gs2mesh_torch.core.png import read_png
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.pipeline import PipelineArgs, Renderer, create_strings
     from gs2mesh_torch.pipeline import run_single as rs
     from gs2mesh_torch.stereo import DLNR, init_dlnr_
@@ -2143,7 +2358,7 @@ def phase_pipeline(work, cfg=None):
                                     GS_save_test_iterations=[iters])
     strings = create_strings(args, base)
     dlnr = init_dlnr_(DLNR(), torch.Generator().manual_seed(0))
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in counters.values():
@@ -2159,7 +2374,7 @@ def phase_pipeline(work, cfg=None):
             wall = time.perf_counter() - t0
     finally:
         rs.TSDF = RecordedTSDF.__base__
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_launches(counters, "pipeline")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     t0 = time.perf_counter()
     stage_report(prof, wall, [("run_single", rs.RUN_STAGES)],
@@ -2516,8 +2731,7 @@ def phase_gs_tools(work, iters=(20, 40)):
     from gs2mesh_torch.core.png import read_png
     from gs2mesh_torch.metrics import init_lpips_params, load_lpips, lpips
     from gs2mesh_torch.models.gaussians import GaussianModel, params_from_numpy
-    from gs2mesh_torch.ops.rasterizer import (RasterizerConfig,
-                                              kernel_wrappers, rasterize)
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig, rasterize
     from gs2mesh_torch.ops.rasterizer.golden import render_golden
 
     src = os.path.join(work, "train_scene")
@@ -2541,7 +2755,7 @@ def phase_gs_tools(work, iters=(20, 40)):
             return res
         return run
 
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in plain:
         setattr(gs_tools, k, timed(k))
     for k in counters.values():
@@ -2555,7 +2769,7 @@ def phase_gs_tools(work, iters=(20, 40)):
     finally:
         for k, fn in plain.items():
             setattr(gs_tools, k, fn)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_launches(counters, "gs_tools")
     tr = trainers[0]
     model_path = os.path.join(out, "train_scene")
     # An overflowed step doubles the capacity and is redone (K1 and K2
@@ -2930,9 +3144,15 @@ def phase_gdino(work, pipe):
         f"{resident_segment:.3f} GiB resident before it (SAM2-large) "
         f"{peak_segment:.3f} GiB (GroundingDINO loaded, predict, SAM2's "
         f"tracking)")
-    check(np.isfinite(box).all() and 0 <= box[0] < box[2] <= w
-          and 0 <= box[1] < box[3] <= h, f"gdino box {box} inside the "
-          f"{w}x{h} image")
+    # best_box_xyxy (both packages, as masker_utils.py) scales the
+    # network's sigmoid (cx, cy, w, h) to pixels without clipping: the
+    # centre lies in the image and the extent is at most the image's, and
+    # a seeded network's box may reach past an edge.
+    cx, cy = (box[0] + box[2]) / 2, (box[1] + box[3]) / 2
+    check(np.isfinite(box).all() and box[0] < box[2] and box[1] < box[3]
+          and 0 <= cx <= w and 0 <= cy <= h and box[2] - box[0] <= w
+          and box[3] - box[1] <= h, f"gdino box {box}: centre in the "
+          f"{w}x{h} image, extent within it")
     check(len(prompts) == 1 and prompts[0]["frame_idx"] == 0
           and np.array_equal(prompts[0]["box"], box)
           and prompts[0].get("points") is None,
@@ -3327,8 +3547,7 @@ def phase_sharded_train(work):
     the alive count after the densify equal, K1-K4 once per taken step; the
     step walls side by side. Returns the sharded run's launches."""
     from gs2mesh_torch.models.gaussians import GaussianModel
-    from gs2mesh_torch.ops.rasterizer import (RasterizerConfig,
-                                              kernel_wrappers)
+    from gs2mesh_torch.ops.rasterizer import RasterizerConfig
     from gs2mesh_torch.parallel import ShardedTrainer, make_mesh
     from gs2mesh_torch.train.scene import load_colmap_scene
     from gs2mesh_torch.train.trainer import TrainConfig, Trainer
@@ -3338,7 +3557,7 @@ def phase_sharded_train(work):
     mesh = make_mesh(1, 1, "cuda")
     rcfg = RasterizerConfig(pair_capacity=1 << 22)
     runs = {}
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for name in ("trainer", "sharded"):
         model = GaussianModel.from_point_cloud(
             scene.points, scene.colors,
@@ -3372,7 +3591,7 @@ def phase_sharded_train(work):
         tr.reset_opacity()
         tr.train(5, callback=cb)
         torch.cuda.synchronize()
-        rec["launches"] = {k: c.launches for k, c in counters.items()}
+        rec["launches"] = read_launches(counters, name)
         runs[name] = rec
         del tr, model
     a, b = runs["trainer"], runs["sharded"]
@@ -3469,7 +3688,6 @@ def phase_viewer(work, n_requests=20, size=(960, 540)):
     Returns the launches."""
     from gs2mesh_torch.core.png import decode_png
     from gs2mesh_torch.models.gaussians import GaussianModel
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.train.trainer import render_model
     from gs2mesh_torch.viewer import ViewerServer, orbit_camera, quantize
 
@@ -3479,7 +3697,7 @@ def phase_viewer(work, n_requests=20, size=(960, 540)):
     srv = ViewerServer(model, width=W, height=H, pair_capacity=1 << 23,
                        port=0, device="cuda")
     port = srv.start()
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     try:
         page, ctype = http_get(port, "/")
         check(ctype.startswith("text/html") and b"viewer" in page, "page")
@@ -3500,7 +3718,7 @@ def phase_viewer(work, n_requests=20, size=(960, 540)):
             walls.append((time.perf_counter() - t0) * 1e3)
             check(ctype == "image/png", "png answer")
             pngs.append(png)
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = read_launches(counters, "viewer")
     finally:
         srv.stop()
     n_pairs = []
@@ -3542,7 +3760,6 @@ def phase_network_gui(work, iters=10, size=(960, 576)):
 
     from gs2mesh_torch.cli import gs_tools
     from gs2mesh_torch.core.camera import make_camera
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.train import network_gui, trainer as trainer_mod
     from gs2mesh_torch.train.trainer import render_model
 
@@ -3619,7 +3836,7 @@ def phase_network_gui(work, iters=10, size=(960, 576)):
             return res
         return run
 
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     runs = {}
     for gui in (True, False):
         timing.clear()
@@ -3646,8 +3863,8 @@ def phase_network_gui(work, iters=10, size=(960, 576)):
             network_gui.serve_step = plain_serve
         runs[gui] = dict(step=list(timing.get("step", [])),
                          serve=list(timing.get("serve", [])),
-                         launches={k: c.launches for k, c in
-                                   counters.items()},
+                         launches=read_launches(
+                             counters, "gui" if gui else None),
                          frames=frames, trainer=tr)
     with_gui, without = runs[True], runs[False]
     frames = with_gui["frames"]
@@ -3873,15 +4090,16 @@ def phase_trainsmoke():
     after each, one step's K1-K4 against their plain versions on the
     trained state. Returns K1-K4's launches over (a) and the max abs
     errors of (a) and (b)."""
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
 
     ts = load_script("tools", "trainsmoke_chip_torch")
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     t0 = time.perf_counter()
     tr, res = ts.run()           # prints its dict; raises on a failed check
-    launches = {k: c.launches for k, c in counters.items()}
+    # The targets are render_golden's: a preprocess each and no K1.
+    launches = read_launches(counters, "trainsmoke",
+                             p1_outside=len(tr.images))
     log(f"19a trainsmoke_chip_torch.run(): {time.perf_counter() - t0:.2f} s")
     log_record("19a trainsmoke", res)
     check_launches("19a trainsmoke", launches, res["taken_steps"],
@@ -3923,16 +4141,16 @@ def phase_calibrate():
     step's K1-K4 against their plain versions on the trained state (after
     the last densify). Returns K1-K4's launches over the tool, the max abs
     errors and the trainer (phase 20 (a) carries it on)."""
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
 
     cal = load_script("tools", "calibrate_scene_torch")
     iters = CALIBRATE_ITERS
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     t0 = time.perf_counter()
     tr, res = cal.run(iters)
-    launches = {k: c.launches for k, c in counters.items()}
+    # The tool's statistics of the trained model preprocess once more.
+    launches = read_launches(counters, "calibrate", p1_outside=1)
     n_densify = len(range(500, iters - 500 + 1, 100))
     log(f"19c calibrate_scene_torch.run({iters}) (cut from the tool's 4000 "
         f"to fit the smoke: densify 500-{iters - 500}, {n_densify} times): "
@@ -3962,7 +4180,6 @@ def phase_walkthrough(work):
     Returns K1-K4's launches over the cells."""
     from gs2mesh_torch.core import colmap_io
     from gs2mesh_torch.core.ply import read_ply
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
     from gs2mesh_torch.pipeline import PipelineArgs
     from gs2mesh_torch.stereo import DLNR, init_dlnr_
 
@@ -3980,11 +4197,11 @@ def phase_walkthrough(work):
     params = dict(device="cuda", skip_video_extraction=True,
                   skip_colmap=True, GS_iterations=iters,
                   GS_save_test_iterations=[iters], masker_automask=False)
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     ns, walls, skipped = wt.run_walkthrough(base, params, skip=PLOT_CALLS)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_launches(counters, "walkthrough")
     log(f"19d walkthrough ({wt.WALKTHROUGH}) calls left out (no matplotlib "
         f"or plotly on this machine): {skipped}")
     for title, s in walls.items():
@@ -4053,7 +4270,6 @@ def phase_size_prune(tr):
     some, and they are printed) that passes both tests is kept, and
     max_radii2D comes back zero. Returns K1-K4's launches over the 100
     steps."""
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
 
     it = SIZE_PRUNE_RESET
     tr.cfg = dataclasses.replace(tr.cfg, iterations=it + 100,
@@ -4078,7 +4294,7 @@ def phase_size_prune(tr):
         return seen["stats"]
 
     tr.densify = watched
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     losses = []
@@ -4086,7 +4302,7 @@ def phase_size_prune(tr):
     pcap = tr.rcfg.pair_capacity
     tr.train(100, callback=lambda t, out: losses.append(float(out.loss)))
     torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_launches(counters, "size_prune")
     del tr.densify
     alive, after = seen["alive"], seen["after"]
     opacity, world, screen = seen["opacity"], seen["world"], seen["screen"]
@@ -4136,10 +4352,9 @@ def phase_train_scale(work):
     K1-K4 against their plain versions on that state. Returns K1-K4's
     launches (the 72 ground-truth renders, the steps and their redos) and
     the max abs errors."""
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
 
     ts = load_script("tools", "train_scale_torch")
-    counters = kernel_wrappers()
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     root = os.path.join(work, "train_scale")
@@ -4160,7 +4375,7 @@ def phase_train_scale(work):
     steps = SCALE_END - SCALE_START
     rec = ts.smoke.train_recorded(tr, steps, window=100)
     log_record("20b dense scene", rec)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = read_launches(counters, "train_scale")
     losses = rec["losses"]
     check(rec["taken_steps"] == steps and tr.iteration == SCALE_END,
           f"20b {steps} taken steps")
@@ -4187,10 +4402,14 @@ def phase_bench_cells():
     committed one and whose loss is the reference's step-0 loss within the
     cell's limit. Then one view of the stereo cell: the refinement gate's
     outcome is the committed one and the disparity is within the cell's
-    limit of the float64 reference. Returns K1-K4's launches in the cell's
-    step and the max abs errors against the plain versions."""
+    limit of the float64 reference. P1 and P2 against their plain versions
+    on the cell's model at its loss cotangent, timed
+    (phase_preprocess_vs_plain). Returns K1-K4's launches in the cell's
+    step, the max abs errors against the plain versions (P1 and P2's too)
+    and P1 and P2's rows of the kernels line."""
     from bench_cells import counts, reference, stereo_view, train_step
-    from gs2mesh_torch.ops.rasterizer import kernel_wrappers
+    from gs2mesh_torch.models.gaussians import activations
+    from gs2mesh_torch.ops.ssim import gs_loss
 
     c, ref = counts.TRAIN_CELL, reference.load()
     t0 = time.perf_counter()
@@ -4203,11 +4422,19 @@ def phase_bench_cells():
         f"{c['accepted']}); {time.perf_counter() - t0:.1f} s")
     check(pairs == c["pairs"], "21 plain pairs == committed")
     check(accepted == c["accepted"], "21 accepted == committed")
-    counters = kernel_wrappers()
+    bg, target = s.bg, s.target
+    prep_errs, prep_rows = phase_preprocess_vs_plain(
+        "21 training cell step 0",
+        activations(s.model.params, s.model.state.alive), s.camera,
+        c["sh_degree"], s.rcfg,
+        lambda color, T: gs_loss(color + T[None] * bg[:, None, None], target,
+                                 s.cfg.lambda_dssim), timed=True)
+    errs.update(prep_errs)
+    counters = path_wrappers()
     for k in counters.values():
         k.launches = 0
     out = s.step()
-    launches = {k: w.launches for k, w in counters.items()}
+    launches = read_launches(counters, "bench_cells")
     loss, loss_ref = float(out.loss), float(ref["train.losses"][0])
     gap = abs(loss - loss_ref) / loss_ref
     log(f"21 training cell, one step through K1-K4: pairs "
@@ -4216,7 +4443,8 @@ def phase_bench_cells():
     check(not (out.overflow or out.tile_overflow), "21 no overflow")
     check(int(out.num_pairs) == c["pairs"], "21 step pairs == committed")
     check(gap <= c["loss_limit"], "21 step-0 loss against the reference")
-    check(all(v == 1 for v in launches.values()), "21 K1-K4 once each")
+    check(all(v == 1 for v in launches.values()),
+          "21 K1-K4 (and P1, P2) once each")
     del s, out
     sc = counts.STEREO_CELL
     model = stereo_view.seeded_dlnr("cuda")
@@ -4231,7 +4459,7 @@ def phase_bench_cells():
         f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
     check(refined == sc["refined"], "21 stereo gate as committed")
     check(gap <= sc["disparity_limit"], "21 stereo disparity")
-    return launches, errs
+    return launches, errs, prep_rows
 
 
 def main():
@@ -4268,8 +4496,12 @@ def main():
         return
     from gs2mesh_torch.ops.rasterizer.composite import kernel_info
     from gs2mesh_torch.ops.rasterizer.emit import emission_kernel_info
+    from gs2mesh_torch.ops.rasterizer.preprocess import \
+        preprocess_kernel_info
     for name, info in (("K1", emission_kernel_info()),
-                       ("K2", kernel_info("K2")), ("K3", kernel_info("K3"))):
+                       ("K2", kernel_info("K2")), ("K3", kernel_info("K3")),
+                       ("P1", preprocess_kernel_info("P1")),
+                       ("P2", preprocess_kernel_info("P2"))):
         log(f"{name}: {info['registers']} registers a thread, "
             f"{info['shared_bytes']} B static shared memory, "
             f"{info['blocks_per_sm']} blocks per SM (occupancy API)")
@@ -4287,6 +4519,7 @@ def main():
     log(f"phase kernels-vs-plain: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     r, renders, launches = phase_main_path(work)
+    p1_main = launches["preprocess"]
     log(f"phase main path: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     rows, dense, serving = phase_timings(r, launches)
@@ -4296,6 +4529,7 @@ def main():
     stereo = phase_stereo(r)
     for row, key in zip(rows, ("K1", "K2")):
         row["launches_stereo"] = stereo[key]
+    PREP_LAUNCHES["stereo"] = {"P1": stereo["P1"], "P2": 0}
     log(f"phase stereo: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     from gs2mesh_torch.pipeline import PipelineArgs
@@ -4378,8 +4612,8 @@ def main():
         phase_train_scale(work)
     log(f"phase 20 dense scene: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    sustained["launches_bench_cells"], trained_err["bench_cells"] = \
-        phase_bench_cells()
+    sustained["launches_bench_cells"], trained_err["bench_cells"], \
+        prep_rows = phase_bench_cells()
     log(f"phase 21 bench cells: {time.perf_counter() - t_phase:.1f} s")
     for row, key in zip(rows, ("K1", "K2", "K3", "K4")):
         for name, launches in sustained.items():
@@ -4398,6 +4632,16 @@ def main():
             row["strided_vs_plain_max_abs_err"] = strided_err[k]
     rows[3]["strided_sum_max_abs_err"] = {
         str(G): v["grad_err"] for G, v in strided.items()}
+    # P1's and P2's launches on each path that K1's and K3's rows report.
+    for row, like, key in zip(prep_rows, (rows[0], rows[2]), ("P1", "P2")):
+        row["launches"] = p1_main if key == "P1" \
+            else PREP_LAUNCHES["train"]["P2"]
+        row.update({f"launches_{path}": n[key]
+                    for path, n in PREP_LAUNCHES.items()
+                    if f"launches_{path}" in like})
+        row["trained_vs_plain_max_abs_err"] = {
+            "bench_cells": trained_err["bench_cells"][key]}
+    rows += prep_rows
     log(f"viewer request ms median {np.median(viewer_t['request_ms']):.2f}; "
         f"GUI frame ms median {np.median(gui_t['frame_ms']):.2f}; step ms "
         f"Trainer {sharded_ms['trainer_ms']:.2f} / ShardedTrainer "

@@ -359,3 +359,55 @@ def test_rasterize_grads_match_cpu(scene):
         assert ref.abs().max() > 0, name
         ok = (g - ref).abs() <= 5e-5 + 5e-3 * ref.abs()
         assert float(ok.float().mean()) >= 0.999, name
+
+
+def test_preprocess_kernels_match_plain():
+    """P1 bit-equal to preprocess_plain on the pair-deciding outputs (rgb
+    within 1e-6); P2 within 1e-5 relative plus 1e-6 of each column's
+    largest gradient of preprocess_backward_plain; both bit-identical
+    across two runs."""
+    from gs2mesh_torch.ops.rasterizer.preprocess import (
+        preprocess_backward_cuda, preprocess_backward_plain,
+        preprocess_forward_cuda, preprocess_plain)
+
+    need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    n = 3000
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    v[:100, 2] = -10.0                          # behind the camera
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    op = rng.uniform(0.3, 0.95, n)
+    op[100:200] = 0.0
+    x = [torch.tensor(np.asarray(a, np.float32), device=dev) for a in (
+        v, np.abs(rng.normal(0.05, 0.015, size=(n, 3))) + 1e-3, q, op,
+        rng.normal(scale=0.3, size=(n, 16, 3)))]
+    cam = make_camera(np.eye(3), np.array([0.0, 0.0, 3.0]), math.radians(60),
+                      math.radians(45), W, H, device=dev)
+    cfg = RasterizerConfig(pair_capacity=1 << 16)
+    with torch.no_grad():
+        k = preprocess_forward_cuda(*x, cam, 3, cfg, 1.0)
+        again = preprocess_forward_cuda(*x, cam, 3, cfg, 1.0)
+        p = preprocess_plain(*x, cam, 3, cfg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, again))
+        for name, a in zip(("means2d", "depths", "conic", "rgb", "radius",
+                            "rect", "tiles_touched"), k):
+            if name == "rgb":
+                assert float((a - p.rgb).abs().max()) <= 1e-6
+            else:
+                assert torch.equal(a, getattr(p, name)), name
+        cot = [torch.tensor(rng.normal(size=(n, c)).astype(np.float32),
+                            device=dev) for c in (2, 3, 3)]
+        args = (x[0], x[1], x[2], x[4], cam, 3, cfg, 1.0, *cot)
+        g = preprocess_backward_cuda(*args)
+        g2 = preprocess_backward_cuda(*args)
+        gp = preprocess_backward_plain(*args)
+        torch.cuda.synchronize()
+    for a, b, c in zip(g, g2, gp):
+        assert torch.equal(a, b)
+        a, c = a.reshape(n, -1), c.reshape(n, -1)
+        assert bool(((a - c).abs() <= 1e-5 * c.abs()
+                     + 1e-6 * c.abs().amax(0)).all())
