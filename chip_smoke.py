@@ -3147,7 +3147,11 @@ def phase_gdino(work, pipe):
     # best_box_xyxy (both packages, as masker_utils.py) scales the
     # network's sigmoid (cx, cy, w, h) to pixels without clipping: the
     # centre lies in the image and the extent is at most the image's, and
-    # a seeded network's box may reach past an edge.
+    # a seeded network's box may reach past an edge. Which query wins
+    # turns on float32 rounding in phase 8's training: routes whose
+    # gradients agree to rounding, or whose targets differ in a few
+    # pixels, pick different queries, and some of their boxes reach past
+    # the bottom (tools/preprocess_routes_torch.py).
     cx, cy = (box[0] + box[2]) / 2, (box[1] + box[3]) / 2
     check(np.isfinite(box).all() and box[0] < box[2] and box[1] < box[3]
           and 0 <= cx <= w and 0 <= cy <= h and box[2] - box[0] <= w

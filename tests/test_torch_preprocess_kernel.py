@@ -71,7 +71,8 @@ def camera_as(dtype):
 def autograd_grads(s, cot, sh_degree, dtype):
     leaves = [torch.from_numpy(s[k]).to(dtype).requires_grad_(True)
               for k in KEYS]
-    out = pp.preprocess_plain(*leaves, camera_as(dtype), sh_degree, CFG)
+    out = pp.preprocess_plain(*leaves, camera_as(dtype), sh_degree, CFG,
+                              float_type=dtype)
     return torch.autograd.grad(
         (out.means2d, out.conic, out.rgb),
         [leaves[KEYS.index(k)] for k in GRAD_KEYS],
@@ -82,7 +83,7 @@ def plain_grads(s, cot, sh_degree, dtype):
     return pp.preprocess_backward_plain(
         *(torch.from_numpy(s[k]).to(dtype) for k in GRAD_KEYS),
         camera_as(dtype), sh_degree, CFG, 1.0,
-        *(torch.from_numpy(c).to(dtype) for c in cot))
+        *(torch.from_numpy(c).to(dtype) for c in cot), float_type=dtype)
 
 
 @pytest.mark.parametrize("sh_degree", [0, 3])
@@ -131,7 +132,8 @@ class _PlainBackward(torch.autograd.Function):
     def forward(ctx, means3d, scales, rotations, shs, opacities, camera,
                 sh_degree):
         out = pp.preprocess_plain(means3d, scales, rotations, opacities, shs,
-                                  camera, sh_degree, CFG)
+                                  camera, sh_degree, CFG,
+                                  float_type=torch.float64)
         ctx.save_for_backward(means3d, scales, rotations, shs)
         ctx.args = (camera, sh_degree)
         return out.means2d, out.conic, out.rgb
@@ -141,7 +143,8 @@ class _PlainBackward(torch.autograd.Function):
         camera, sh_degree = ctx.args
         g = pp.preprocess_backward_plain(*ctx.saved_tensors, camera,
                                          sh_degree, CFG, 1.0, dmeans2d,
-                                         dconic, drgb)
+                                         dconic, drgb,
+                                         float_type=torch.float64)
         return (*g, None, None, None)
 
 
@@ -173,6 +176,18 @@ def test_backward_plain_matches_jax_vjp(sh_degree):
     for name, a, b in zip(GRAD_KEYS, got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-5,
                                    rtol=5e-3, err_msg=name)
+
+
+def test_float64_means_compute_in_float32():
+    """The plain route casts the means to float32, as the JAX package does:
+    float64 means give the float32 call's outputs, bit for bit."""
+    s = edge_scene(96, 3)
+    x = [torch.from_numpy(s[k]) for k in KEYS]
+    ref = pp.preprocess(*x, CAM, 3, CFG)
+    got = pp.preprocess(x[0].double(), *x[1:], CAM, 3, CFG)
+    for name, a, b in zip(ref._fields, got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert ref.means2d.dtype == ref.conic.dtype == torch.float32
 
 
 def test_cpu_tensors_never_reach_the_kernels():
